@@ -1,0 +1,496 @@
+// merge_fold_compact.cu — merge + run fold + stream compaction for Hopper
+// (sm_90a), the consolidation kernel of the two-level count table.
+//
+// Replaces kmer_counter_tpu/ops/pallas_sort.py
+// _merge_pair_fold_compact_bitonic_call (entry merge_fold_compact_bitonic).
+//
+// Computes, for A = NL key lanes + count, sorted ascending, and B = NL key
+// lanes + 0/1 liveness, stored DESCENDING: the ascending merge of A and B
+// with every run of equal keys folded onto one row that carries the run's
+// total count mod 2^32; runs whose key is the all-ones sentinel and runs
+// whose total is 0 are dropped; the live rows are packed to the front and
+// every row after them holds the sentinel key and count 0.  Liveness comes
+// from the count only, never from the key (dead B rows carry all-zero keys,
+// bit-identical to a genuine A^k record, and count 0).
+//
+// What bounds it: memory.  Per merged row the kernel does a few dozen
+// integer compares but moves (NL+1)*4 bytes in and (NL+1)*4 bytes out of
+// device memory per pass, far below the card's compute-to-bandwidth ratio.
+//
+// Design.  The TPU kernel relies on its grid running tiles in order: the
+// partial sum of a run that crosses a tile edge and the output offset are
+// carried from one grid step to the next in SMEM.  CUDA blocks run in no
+// order, so the work is split into passes whose cross-tile state is a
+// handful of numbers per tile:
+//   1. splits:  one thread per tile boundary finds the merge-path split of
+//      diagonal t*TILE by binary search, reading B through the reversed
+//      index nb-1-j (as _diag_splits_pair_desc does).
+//   2. stats:   each block stages its two windows in shared memory, merges
+//      them (a merge-path search per thread, then a serial merge of ITEMS
+//      rows), finds run heads and ends against the merged stream's
+//      neighbours of the tile, and runs one block-wide segmented scan.  It
+//      writes per-tile numbers: the count sum, the partial sum of the run
+//      open at the tile's start, and the number of live rows that end here.
+//   3. (torch, between launches) scans of those per-tile numbers give each
+//      tile its incoming run carry and its output offset.
+//   4. compact: each block merges its tile again, completes the totals with
+//      the carry, ranks its live rows with a block scan, writes them at its
+//      offset, and fills its share of the rows past the live count.
+// Merging twice instead of storing the merged stream reads A and B twice
+// but needs no n-row scratch: 2 reads + 1 write of (NL+1)*4 bytes per row.
+// The TPU kernel reads once; fusing the passes (decoupled look-back) is
+// later work.  Blocks mask their own ragged edge, so n needs no alignment.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+#include <cub/block/block_scan.cuh>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kItems = 4;
+constexpr int kTile = kThreads * kItems;  // merged rows per block
+constexpr int kMaxOps = 9;                // 8 key lanes + count
+
+// Rows of the per-tile stats array [kNumStats, num_tiles] (int64).
+enum Stat {
+  kTileSum = 0,  // sum of the tile's counts, mod 2^32
+  kHasEnd,       // 1 if a run ends inside the tile
+  kOpenSum,      // counts of the run open at the tile's start, up to its end here
+  kHasOpen,      // 1 if that open run ends inside the tile
+  kOpenSent,     // 1 if that open run's key is the sentinel
+  kLiveLocal,    // live rows among the runs that start inside the tile
+  kTail,         // counts after the tile's last run end (if it has one)
+  kNumStats
+};
+
+struct Ops {
+  const uint32_t* p[kMaxOps];
+};
+struct OutOps {
+  uint32_t* p[kMaxOps];
+};
+
+template <int NL>
+__device__ __forceinline__ bool key_le(const uint32_t* x, const uint32_t* y) {
+#pragma unroll
+  for (int l = 0; l < NL; ++l) {
+    if (x[l] != y[l]) return x[l] < y[l];
+  }
+  return true;
+}
+
+template <int NL>
+__device__ __forceinline__ void load_a(const Ops& a, long long i, uint32_t* key) {
+#pragma unroll
+  for (int l = 0; l < NL; ++l) key[l] = a.p[l][i];
+}
+
+// B is stored descending: ascending index j is stored row nb-1-j.
+template <int NL>
+__device__ __forceinline__ void load_b_asc(const Ops& b, long long nb, long long j,
+                                           uint32_t* key) {
+#pragma unroll
+  for (int l = 0; l < NL; ++l) key[l] = b.p[l][nb - 1 - j];
+}
+
+template <int NL>
+struct TileSmem {
+  uint32_t ops[NL + 1][kTile];  // the tile's rows; merged in place
+  uint32_t prev[NL];            // merged row just before the tile
+  uint32_t next[NL];            // merged row just after the tile
+  int has_prev;
+  int has_next;
+};
+
+template <int NL>
+__device__ __forceinline__ bool smem_le(const TileSmem<NL>& sm, int x, int y) {
+#pragma unroll
+  for (int l = 0; l < NL; ++l) {
+    if (sm.ops[l][x] != sm.ops[l][y]) return sm.ops[l][x] < sm.ops[l][y];
+  }
+  return true;
+}
+
+template <int NL>
+__device__ __forceinline__ bool smem_eq(const TileSmem<NL>& sm, int x, int y) {
+  bool eq = true;
+#pragma unroll
+  for (int l = 0; l < NL; ++l) eq &= sm.ops[l][x] == sm.ops[l][y];
+  return eq;
+}
+
+template <int NL>
+__device__ __forceinline__ bool smem_eq_key(const TileSmem<NL>& sm, int x,
+                                            const uint32_t* key) {
+  bool eq = true;
+#pragma unroll
+  for (int l = 0; l < NL; ++l) eq &= sm.ops[l][x] == key[l];
+  return eq;
+}
+
+template <int NL>
+__device__ __forceinline__ bool smem_is_sentinel(const TileSmem<NL>& sm, int x) {
+  bool s = true;
+#pragma unroll
+  for (int l = 0; l < NL; ++l) s &= sm.ops[l][x] == 0xFFFFFFFFu;
+  return s;
+}
+
+// Merge-path split of diagonal d: the number of A rows among the first d
+// merged rows (A first on equal keys).
+template <int NL>
+__global__ void splits_kernel(Ops a, Ops b, long long na, long long nb,
+                              long long num_tiles, long long* splits) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t > num_tiles) return;
+  const long long n = na + nb;
+  const long long d = t * kTile < n ? t * kTile : n;
+  long long lo = d > nb ? d - nb : 0;
+  long long hi = d < na ? d : na;
+  uint32_t ka[NL], kb[NL];
+  while (lo < hi) {
+    const long long mid = (lo + hi) >> 1;
+    load_a<NL>(a, mid, ka);
+    load_b_asc<NL>(b, nb, d - 1 - mid, kb);
+    if (key_le<NL>(ka, kb)) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  splits[t] = lo;
+}
+
+// Stages tile t's windows of A and B in shared memory and merges them in
+// place; records the merged stream's neighbours of the tile.  Returns the
+// tile's row count.
+template <int NL>
+__device__ int merge_tile(const Ops& a, const Ops& b, long long na, long long nb,
+                          const long long* splits, long long t, TileSmem<NL>& sm) {
+  const long long n = na + nb;
+  const long long d0 = t * kTile;
+  const long long d1 = d0 + kTile < n ? d0 + kTile : n;
+  const long long i0 = splits[t], i1 = splits[t + 1];
+  const long long j0 = d0 - i0, j1 = d1 - i1;
+  const int la = (int)(i1 - i0);
+  const int lb = (int)(j1 - j0);
+  const int len = la + lb;
+
+  // A's window ascending at [0, la); B's window (descending rows
+  // [nb-j1, nb-j0), read forward) reversed into [la, len).
+  for (int r = threadIdx.x; r < la; r += kThreads) {
+#pragma unroll
+    for (int l = 0; l <= NL; ++l) sm.ops[l][r] = a.p[l][i0 + r];
+  }
+  const long long b_row0 = nb - j1;
+  for (int r = threadIdx.x; r < lb; r += kThreads) {
+#pragma unroll
+    for (int l = 0; l <= NL; ++l) sm.ops[l][len - 1 - r] = b.p[l][b_row0 + r];
+  }
+  if (threadIdx.x == 0) {
+    // The row before the tile is the larger of the last consumed A and B
+    // rows; the row after it the smaller of the next unconsumed ones.
+    uint32_t ka[NL], kb[NL];
+    sm.has_prev = d0 > 0;
+    if (d0 > 0) {
+      const bool use_a = i0 > 0, use_b = j0 > 0;
+      if (use_a) load_a<NL>(a, i0 - 1, ka);
+      if (use_b) load_b_asc<NL>(b, nb, j0 - 1, kb);
+      const bool pick_a = use_a && (!use_b || key_le<NL>(kb, ka));
+#pragma unroll
+      for (int l = 0; l < NL; ++l) sm.prev[l] = pick_a ? ka[l] : kb[l];
+    }
+    sm.has_next = d1 < n;
+    if (d1 < n) {
+      const bool use_a = i1 < na, use_b = j1 < nb;
+      if (use_a) load_a<NL>(a, i1, ka);
+      if (use_b) load_b_asc<NL>(b, nb, j1, kb);
+      const bool pick_a = use_a && (!use_b || key_le<NL>(ka, kb));
+#pragma unroll
+      for (int l = 0; l < NL; ++l) sm.next[l] = pick_a ? ka[l] : kb[l];
+    }
+  }
+  __syncthreads();
+
+  // Thread i merges output rows [i*kItems, (i+1)*kItems) of the tile.
+  const int diag = min((int)threadIdx.x * kItems, len);
+  int lo = max(0, diag - lb), hi = min(diag, la);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (smem_le<NL>(sm, mid, la + diag - 1 - mid)) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  int ia = lo, ib = la + diag - lo;
+  uint32_t reg[kItems][NL + 1];
+#pragma unroll
+  for (int q = 0; q < kItems; ++q) {
+    if (diag + q < len) {
+      const bool take_a = ib >= len || (ia < la && smem_le<NL>(sm, ia, ib));
+      const int src = take_a ? ia++ : ib++;
+#pragma unroll
+      for (int l = 0; l <= NL; ++l) reg[q][l] = sm.ops[l][src];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < kItems; ++q) {
+    if (diag + q < len) {
+#pragma unroll
+      for (int l = 0; l <= NL; ++l) sm.ops[l][diag + q] = reg[q][l];
+    }
+  }
+  __syncthreads();
+  return len;
+}
+
+// Segmented-scan element: flag = a run head was seen; seg = counts since
+// the last head (or since the tile's start when flag is 0); tot = all
+// counts.  uint32 arithmetic wraps mod 2^32, as the counts do.
+struct Seg {
+  uint32_t flag, seg, tot;
+};
+struct SegOp {
+  __device__ __forceinline__ Seg operator()(const Seg& x, const Seg& y) const {
+    return Seg{x.flag | y.flag, y.flag ? y.seg : x.seg + y.seg, x.tot + y.tot};
+  }
+};
+using SegScan = cub::BlockScan<Seg, kThreads>;
+using RankScan = cub::BlockScan<int, kThreads>;
+
+struct Items {
+  Seg seg[kItems];  // inclusive segmented scan at each of the thread's rows
+  bool end[kItems];
+  bool sent[kItems];
+};
+
+// Run heads/ends of the thread's rows and the block-wide segmented scan of
+// their counts.  Returns the block aggregate (tot = the tile's count sum).
+template <int NL>
+__device__ Seg scan_tile(const TileSmem<NL>& sm, int len, SegScan::TempStorage& tmp,
+                         Items& it) {
+  const int base = threadIdx.x * kItems;
+  Seg item[kItems];
+  Seg agg{0u, 0u, 0u};
+#pragma unroll
+  for (int q = 0; q < kItems; ++q) {
+    const int p = base + q;
+    bool head = false, end = false, sent = false;
+    uint32_t c = 0u;
+    if (p < len) {
+      head = p == 0 ? (!sm.has_prev || !smem_eq_key<NL>(sm, 0, sm.prev))
+                    : !smem_eq<NL>(sm, p - 1, p);
+      end = p == len - 1 ? (!sm.has_next || !smem_eq_key<NL>(sm, p, sm.next))
+                         : !smem_eq<NL>(sm, p, p + 1);
+      sent = smem_is_sentinel<NL>(sm, p);
+      c = sm.ops[NL][p];
+    }
+    it.end[q] = end;
+    it.sent[q] = sent;
+    item[q] = Seg{head ? 1u : 0u, c, c};
+    agg = SegOp()(agg, item[q]);
+  }
+  Seg excl, total;
+  SegScan(tmp).ExclusiveScan(agg, excl, Seg{0u, 0u, 0u}, SegOp(), total);
+  Seg run = excl;
+#pragma unroll
+  for (int q = 0; q < kItems; ++q) {
+    run = SegOp()(run, item[q]);
+    it.seg[q] = run;
+  }
+  return total;
+}
+
+template <int NL>
+__global__ void __launch_bounds__(kThreads)
+    stats_kernel(Ops a, Ops b, long long na, long long nb, const long long* splits,
+                 long long num_tiles, long long* stats) {
+  __shared__ TileSmem<NL> sm;
+  __shared__ SegScan::TempStorage scan_tmp;
+  __shared__ int s_has_end, s_has_open, s_open_sent, s_live;
+  __shared__ uint32_t s_open_sum, s_tail;
+  const long long t = blockIdx.x;
+  if (threadIdx.x == 0) {
+    s_has_end = s_has_open = s_open_sent = s_live = 0;
+    s_open_sum = s_tail = 0u;
+  }
+  const int len = merge_tile<NL>(a, b, na, nb, splits, t, sm);
+  Items it;
+  const Seg total = scan_tile<NL>(sm, len, scan_tmp, it);
+  int live = 0;
+#pragma unroll
+  for (int q = 0; q < kItems; ++q) {
+    const int p = threadIdx.x * kItems + q;
+    if (p < len && it.end[q]) {
+      s_has_end = 1;
+      if (it.seg[q].flag) {
+        live += (!it.sent[q] && it.seg[q].seg != 0u) ? 1 : 0;
+      } else {
+        // At most one row per tile ends a run with no head in the tile.
+        s_has_open = 1;
+        s_open_sum = it.seg[q].seg;
+        s_open_sent = it.sent[q] ? 1 : 0;
+      }
+    }
+    if (p == len - 1) s_tail = it.end[q] ? 0u : it.seg[q].seg;
+  }
+  if (live) atomicAdd(&s_live, live);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    stats[kTileSum * num_tiles + t] = total.tot;
+    stats[kHasEnd * num_tiles + t] = s_has_end;
+    stats[kOpenSum * num_tiles + t] = s_open_sum;
+    stats[kHasOpen * num_tiles + t] = s_has_open;
+    stats[kOpenSent * num_tiles + t] = s_open_sent;
+    stats[kLiveLocal * num_tiles + t] = s_live;
+    stats[kTail * num_tiles + t] = s_tail;
+  }
+}
+
+template <int NL>
+__global__ void __launch_bounds__(kThreads)
+    compact_kernel(Ops a, Ops b, OutOps out, long long na, long long nb,
+                   const long long* splits, const long long* carry,
+                   const long long* out_off, const long long* live_total) {
+  __shared__ TileSmem<NL> sm;
+  __shared__ union {
+    SegScan::TempStorage seg;
+    RankScan::TempStorage rank;
+  } tmp;
+  const long long t = blockIdx.x;
+  const int len = merge_tile<NL>(a, b, na, nb, splits, t, sm);
+  Items it;
+  scan_tile<NL>(sm, len, tmp.seg, it);
+  const uint32_t carry_in = (uint32_t)carry[t];
+  uint32_t total[kItems];
+  bool alive[kItems];
+  int n_alive = 0;
+#pragma unroll
+  for (int q = 0; q < kItems; ++q) {
+    const int p = threadIdx.x * kItems + q;
+    total[q] = it.seg[q].flag ? it.seg[q].seg : carry_in + it.seg[q].seg;
+    alive[q] = p < len && it.end[q] && !it.sent[q] && total[q] != 0u;
+    n_alive += alive[q] ? 1 : 0;
+  }
+  __syncthreads();  // tmp.seg is reused as tmp.rank
+  int rank;
+  RankScan(tmp.rank).ExclusiveSum(n_alive, rank);
+  long long pos = out_off[t] + rank;
+#pragma unroll
+  for (int q = 0; q < kItems; ++q) {
+    if (alive[q]) {
+      const int p = threadIdx.x * kItems + q;
+#pragma unroll
+      for (int l = 0; l < NL; ++l) out.p[l][pos] = sm.ops[l][p];
+      out.p[NL][pos] = total[q];
+      ++pos;
+    }
+  }
+  // This tile's share of the rows past the live ones: sentinel key, count 0.
+  const long long n = na + nb;
+  const long long d0 = t * kTile;
+  const long long d1 = d0 + kTile < n ? d0 + kTile : n;
+  const long long lt = *live_total;
+  for (long long r = (d0 > lt ? d0 : lt) + threadIdx.x; r < d1; r += kThreads) {
+#pragma unroll
+    for (int l = 0; l < NL; ++l) out.p[l][r] = 0xFFFFFFFFu;
+    out.p[NL][r] = 0u;
+  }
+}
+
+Ops make_ops(const void* const* ptrs, int n_ops) {
+  Ops o{};
+  for (int i = 0; i < n_ops; ++i) o.p[i] = static_cast<const uint32_t*>(ptrs[i]);
+  return o;
+}
+
+long long num_tiles(long long n) { return (n + kTile - 1) / kTile; }
+
+template <int NL>
+int run_stats(const Ops& a, const Ops& b, long long na, long long nb, long long* splits,
+              long long* stats, cudaStream_t stream) {
+  const long long tiles = num_tiles(na + nb);
+  const long long split_blocks = (tiles + 1 + 255) / 256;
+  splits_kernel<NL><<<(unsigned)split_blocks, 256, 0, stream>>>(a, b, na, nb, tiles, splits);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  stats_kernel<NL><<<(unsigned)tiles, kThreads, 0, stream>>>(a, b, na, nb, splits, tiles,
+                                                             stats);
+  return cudaGetLastError();
+}
+
+template <int NL>
+int run_compact(const Ops& a, const Ops& b, const OutOps& out, long long na, long long nb,
+                const long long* splits, const long long* carry, const long long* out_off,
+                const long long* live_total, cudaStream_t stream) {
+  const long long tiles = num_tiles(na + nb);
+  compact_kernel<NL><<<(unsigned)tiles, kThreads, 0, stream>>>(a, b, out, na, nb, splits,
+                                                               carry, out_off, live_total);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int mfc_tile_rows() { return kTile; }
+
+int mfc_num_stats() { return kNumStats; }
+
+// Passes 1-2.  a_ptrs / b_ptrs: host arrays of num_keys+1 device pointers
+// (key lanes, then the count).  splits: [num_tiles+1] int64; stats:
+// [kNumStats, num_tiles] int64.  Returns a cudaError_t.
+int mfc_stats(const void* const* a_ptrs, const void* const* b_ptrs, int num_keys,
+              long long na, long long nb, void* splits, void* stats, void* stream) {
+  const Ops a = make_ops(a_ptrs, num_keys + 1);
+  const Ops b = make_ops(b_ptrs, num_keys + 1);
+  auto* sp = static_cast<long long*>(splits);
+  auto* st = static_cast<long long*>(stats);
+  auto s = static_cast<cudaStream_t>(stream);
+#define MFC_STATS_CALL(NL) run_stats<NL>(a, b, na, nb, sp, st, s)
+  switch (num_keys) {
+    case 1: return MFC_STATS_CALL(1);
+    case 2: return MFC_STATS_CALL(2);
+    case 3: return MFC_STATS_CALL(3);
+    case 4: return MFC_STATS_CALL(4);
+    case 5: return MFC_STATS_CALL(5);
+    case 6: return MFC_STATS_CALL(6);
+    case 7: return MFC_STATS_CALL(7);
+    case 8: return MFC_STATS_CALL(8);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Pass 4.  out_ptrs: host array of num_keys+1 device pointers to [na+nb]
+// rows; carry, out_off: [num_tiles] int64; live_total: one int64.
+int mfc_compact(const void* const* a_ptrs, const void* const* b_ptrs,
+                void* const* out_ptrs, int num_keys, long long na, long long nb,
+                const void* splits, const void* carry, const void* out_off,
+                const void* live_total, void* stream) {
+  const Ops a = make_ops(a_ptrs, num_keys + 1);
+  const Ops b = make_ops(b_ptrs, num_keys + 1);
+  OutOps out{};
+  for (int i = 0; i <= num_keys; ++i) out.p[i] = static_cast<uint32_t*>(out_ptrs[i]);
+  auto* sp = static_cast<const long long*>(splits);
+  auto* ca = static_cast<const long long*>(carry);
+  auto* off = static_cast<const long long*>(out_off);
+  auto* lt = static_cast<const long long*>(live_total);
+  auto s = static_cast<cudaStream_t>(stream);
+#define MFC_COMPACT_CALL(NL) run_compact<NL>(a, b, out, na, nb, sp, ca, off, lt, s)
+  switch (num_keys) {
+    case 1: return MFC_COMPACT_CALL(1);
+    case 2: return MFC_COMPACT_CALL(2);
+    case 3: return MFC_COMPACT_CALL(3);
+    case 4: return MFC_COMPACT_CALL(4);
+    case 5: return MFC_COMPACT_CALL(5);
+    case 6: return MFC_COMPACT_CALL(6);
+    case 7: return MFC_COMPACT_CALL(7);
+    case 8: return MFC_COMPACT_CALL(8);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // extern "C"

@@ -1,0 +1,186 @@
+"""Merge + run fold + compaction (K1) — counterpart of
+kmer_counter_tpu.ops.pallas_sort.merge_fold_compact_bitonic.
+
+``merge_fold_compact`` launches the hand-written CUDA kernel in
+``csrc/merge_fold_compact.cu`` (which replaces the Pallas kernel
+``pallas_sort._merge_pair_fold_compact_bitonic_call``) for CUDA tensors,
+and runs ``merge_fold_compact_reference``, its plain torch version, only
+for tensors on the CPU.  There is no fallback: on any other device, or
+when the kernel cannot be built or launched, it raises.
+
+Contract (both versions): ``a_ops`` is NL key lanes + a count, sorted
+ascending (count 0 = empty row); ``b_desc_ops`` is NL key lanes + 0/1
+liveness, sorted DESCENDING.  Every operand is a 1-D contiguous int32
+tensor holding uint32 bits.  The result is ``(out, live_count)``: ``out``
+is ``[NL+1, na+nb] int32`` (key lanes, then counts) with one row per
+distinct non-sentinel key whose total count mod 2^32 is not 0, ascending
+and dense at the front, and sentinel keys with count 0 after them;
+``live_count`` is a 0-d int64 tensor on the operands' device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+from kmer_counter_tpu_torch import cuda_build
+from kmer_counter_tpu_torch.ops.sortcount import lex_argsort, run_heads, run_totals
+from kmer_counter_tpu_torch.ops.u32 import SENTINEL, narrow, widen
+
+MAX_KEYS = 8
+# Kernel launches through ``merge_fold_compact`` (one per call on a CUDA
+# tensor; the plain version does not count).
+launches = 0
+
+
+def _check(a_ops: Sequence[torch.Tensor], b_ops: Sequence[torch.Tensor], num_keys: int):
+    if not 1 <= num_keys <= MAX_KEYS:
+        raise ValueError(f"num_keys must be in [1, {MAX_KEYS}], got {num_keys}")
+    if len(a_ops) != num_keys + 1 or len(b_ops) != num_keys + 1:
+        raise ValueError("operands must be num_keys key lanes + one count")
+    device = a_ops[0].device
+    for side in (a_ops, b_ops):
+        n = side[0].shape[0]
+        for v in side:
+            if v.dtype != torch.int32:
+                raise TypeError(f"operands must be int32 (uint32 bits), got {v.dtype}")
+            if v.dim() != 1 or v.shape[0] != n:
+                raise ValueError("operands of one side must be 1-D and of equal length")
+            if v.device != device:
+                raise ValueError("all operands must be on one device")
+            if not v.is_contiguous():
+                raise ValueError("operands must be contiguous")
+
+
+def merge_fold_compact(
+    a_ops: Sequence[torch.Tensor], b_desc_ops: Sequence[torch.Tensor], num_keys: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1: the kernel for CUDA tensors, the plain version for CPU tensors."""
+    _check(a_ops, b_desc_ops, num_keys)
+    device = a_ops[0].device
+    if device.type == "cpu":
+        return merge_fold_compact_reference(a_ops, b_desc_ops, num_keys)
+    if device.type != "cuda":
+        raise RuntimeError(f"merge_fold_compact has no kernel for device {device}")
+    return _launch(a_ops, b_desc_ops, num_keys)
+
+
+def merge_fold_compact_reference(
+    a_ops: Sequence[torch.Tensor], b_desc_ops: Sequence[torch.Tensor], num_keys: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch K1: concatenate A and the flipped B, stable
+    lexicographic sort, run boundaries, int64 run sums masked to 32 bits,
+    boolean-mask compaction."""
+    NL = num_keys
+    device = a_ops[0].device
+    na, nb = a_ops[0].shape[0], b_desc_ops[0].shape[0]
+    n = na + nb
+    out = torch.full((NL + 1, n), SENTINEL, dtype=torch.int32, device=device)
+    out[NL] = 0
+    if n == 0:
+        return out, torch.zeros((), dtype=torch.int64, device=device)
+    keys = torch.cat([torch.stack(list(a_ops[:NL])), torch.stack(list(b_desc_ops[:NL])).flip(1)], 1)
+    counts = widen(torch.cat([a_ops[NL], b_desc_ops[NL].flip(0)]))
+    perm = lex_argsort(keys)
+    s = keys[:, perm]
+    head_idx = torch.nonzero(run_heads(s)).squeeze(1)
+    totals = run_totals(counts[perm], head_idx)
+    run_keys = s[:, head_idx]
+    alive = ~(run_keys == SENTINEL).all(dim=0) & (totals != 0)
+    live = int(alive.sum())
+    out[:NL, :live] = run_keys[:, alive]
+    out[NL, :live] = narrow(totals[alive])
+    return out, torch.tensor(live, dtype=torch.int64, device=device)
+
+
+# ---- the CUDA kernel -------------------------------------------------------
+
+# Rows of the kernel's per-tile stats array (enum Stat in the .cu source).
+(TILE_SUM, HAS_END, OPEN_SUM, HAS_OPEN, OPEN_SENT, LIVE_LOCAL, TAIL) = range(7)
+NUM_STATS = 7
+
+
+def _lib() -> ctypes.CDLL:
+    lib = cuda_build.load("merge_fold_compact")
+    if not getattr(lib, "_mfc_typed", False):
+        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        ptrs = ctypes.POINTER(ctypes.c_void_p)
+        lib.mfc_tile_rows.argtypes, lib.mfc_tile_rows.restype = [], i
+        lib.mfc_num_stats.argtypes, lib.mfc_num_stats.restype = [], i
+        lib.mfc_stats.argtypes = [ptrs, ptrs, i, ll, ll, vp, vp, vp]
+        lib.mfc_stats.restype = i
+        lib.mfc_compact.argtypes = [ptrs, ptrs, ptrs, i, ll, ll, vp, vp, vp, vp, vp]
+        lib.mfc_compact.restype = i
+        if lib.mfc_num_stats() != NUM_STATS:
+            raise RuntimeError("merge_fold_compact.cu and its wrapper disagree on the stats layout")
+        lib._mfc_typed = True
+    return lib
+
+
+def tile_rows() -> int:
+    """Merged rows per CUDA block (builds the kernel if needed)."""
+    return _lib().mfc_tile_rows()
+
+
+def tile_carry_and_offsets(stats: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-tile scans between the kernel's stats and compact passes.
+
+    From ``stats [NUM_STATS, T] int64`` (see the .cu source) returns
+    (carry ``[T]``: the counts, mod 2^32, that the run open at each
+    tile's start accumulated in earlier tiles; out_off ``[T]``: each
+    tile's first output row; live_total: 0-d).  The sequential carry
+    recurrence of the TPU kernel,
+    ``carry[t+1] = tail[t] if has_end[t] else carry[t] + tile_sum[t]``,
+    is solved in closed form with a cumsum and a cummax.
+    """
+    T = stats.shape[1]
+    tile_sum, has_end = stats[TILE_SUM], stats[HAS_END] != 0
+    excl = torch.cumsum(tile_sum, 0) - tile_sum
+    # carry[t] = excl[t] + (tail[u] - excl[u+1]) for the last tile u < t
+    # with a run end (0 when there is none).
+    reset = torch.where(has_end, stats[TAIL] - (excl + tile_sum), 0)
+    idx = torch.arange(T, device=stats.device)
+    last = torch.cummax(torch.where(has_end, idx, -1), 0).values
+    last = torch.cat([last.new_full((1,), -1), last[:-1]])
+    carry = (excl + torch.where(last >= 0, reset[last.clamp(min=0)], 0)) & 0xFFFFFFFF
+    open_total = (carry + stats[OPEN_SUM]) & 0xFFFFFFFF
+    open_alive = (stats[HAS_OPEN] != 0) & (stats[OPEN_SENT] == 0) & (open_total != 0)
+    live = stats[LIVE_LOCAL] + open_alive.to(torch.int64)
+    out_off = torch.cumsum(live, 0) - live
+    return carry, out_off, live.sum()
+
+
+def _ptr_array(ops: Sequence[torch.Tensor]):
+    return (ctypes.c_void_p * len(ops))(*[v.data_ptr() for v in ops])
+
+
+def _launch(a_ops, b_ops, num_keys):
+    global launches
+    lib = _lib()
+    device = a_ops[0].device
+    NL = num_keys
+    na, nb = a_ops[0].shape[0], b_ops[0].shape[0]
+    n = na + nb
+    out = torch.empty((NL + 1, n), dtype=torch.int32, device=device)
+    if n == 0:
+        return out, torch.zeros((), dtype=torch.int64, device=device)
+    tiles = -(-n // lib.mfc_tile_rows())
+    splits = torch.empty(tiles + 1, dtype=torch.int64, device=device)
+    stats = torch.empty((NUM_STATS, tiles), dtype=torch.int64, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    a_ptrs, b_ptrs = _ptr_array(a_ops), _ptr_array(b_ops)
+    err = lib.mfc_stats(a_ptrs, b_ptrs, NL, na, nb, splits.data_ptr(), stats.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"merge_fold_compact stats launch failed: cudaError {err}")
+    carry, out_off, live_total = tile_carry_and_offsets(stats)
+    out_ptrs = _ptr_array(list(out.unbind(0)))
+    err = lib.mfc_compact(
+        a_ptrs, b_ptrs, out_ptrs, NL, na, nb, splits.data_ptr(), carry.data_ptr(),
+        out_off.data_ptr(), live_total.data_ptr(), stream,
+    )
+    if err:
+        raise RuntimeError(f"merge_fold_compact compact launch failed: cudaError {err}")
+    launches += 1
+    return out, live_total

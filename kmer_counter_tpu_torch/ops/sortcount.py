@@ -1,0 +1,88 @@
+"""Multi-lane sort + segment reduce — counterpart of
+kmer_counter_tpu.ops.sortcount.
+
+On the TPU both are XLA's ``lax.sort`` plus boundary/cumsum arithmetic,
+not Pallas kernels, so they stay torch ops here; the hand-written
+multi-lane sort is later work.
+
+Contract of ``sort_reduce`` (as in the JAX package): slots
+[0, num_unique) hold distinct keys ascending with their summed counts;
+slots past num_unique have count 0 and unspecified keys; counts wrap
+mod 2^32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from kmer_counter_tpu_torch.ops.u32 import MASK, SENTINEL, narrow, widen
+
+
+def _digits(lanes: torch.Tensor) -> list[torch.Tensor]:
+    """Lanes ``[NL, N] int32`` → int64 sort digits, most significant
+    first.  Two lanes pack into one digit ``((hi ^ 0x80000000) << 32) |
+    lo``: flipping hi's sign bit makes signed int64 order equal unsigned
+    (hi, lo) order."""
+    NL = lanes.shape[0]
+    out = []
+    for i in range(0, NL, 2):
+        if i + 1 < NL:
+            hi = (lanes[i] ^ torch.iinfo(torch.int32).min).to(torch.int64)
+            out.append((hi << 32) | widen(lanes[i + 1]))
+        else:
+            out.append(widen(lanes[i]))
+    return out
+
+
+def lex_argsort(lanes: torch.Tensor) -> torch.Tensor:
+    """Stable permutation sorting ``[NL, N] int32`` lanes ascending as
+    unsigned lexicographic keys (the counterpart of
+    sortcount.device_sort).  One int64 sort for NL <= 2; stable LSD
+    passes over two-lane digits beyond."""
+    digits = _digits(lanes)
+    perm = torch.sort(digits[-1], stable=True).indices
+    for d in reversed(digits[:-1]):
+        perm = perm[torch.sort(d[perm], stable=True).indices]
+    return perm
+
+
+def run_heads(s_lanes: torch.Tensor) -> torch.Tensor:
+    """Bool ``[N]``: the first row of each run of equal keys (sorted)."""
+    head = torch.ones(s_lanes.shape[1], dtype=torch.bool, device=s_lanes.device)
+    if s_lanes.shape[1] > 1:
+        head[1:] = (s_lanes[:, 1:] != s_lanes[:, :-1]).any(dim=0)
+    return head
+
+
+def run_totals(counts64: torch.Tensor, head_idx: torch.Tensor) -> torch.Tensor:
+    """Per-run sums (int64, mod 2^32) of sorted counts given run-head
+    indices."""
+    csum = torch.cumsum(counts64, dim=0)
+    end_idx = torch.cat([head_idx[1:] - 1, head_idx.new_tensor([counts64.shape[0] - 1])])
+    return (csum[end_idx] - csum[head_idx] + counts64[head_idx]) & MASK
+
+
+def sort_reduce(
+    lanes: torch.Tensor, counts: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Collapse duplicate keys: (unique_lanes ``[NL, N] int32``,
+    unique_counts ``[N] int32``, num_unique).  Rows with count 0 are
+    ignored (their keys become the sentinel, which sorts last)."""
+    NL, N = lanes.shape
+    if N == 0:
+        return lanes.clone(), counts.clone(), 0
+    eff = torch.where(counts != 0, lanes, SENTINEL)
+    perm = lex_argsort(eff)
+    s = eff[:, perm]
+    c = widen(counts)[perm]
+    head_idx = torch.nonzero(run_heads(s)).squeeze(1)
+    U = head_idx.shape[0]
+    totals = run_totals(c, head_idx)
+    u_lanes = torch.full_like(lanes, SENTINEL)
+    u_lanes[:, :U] = s[:, head_idx]
+    u_counts = torch.zeros_like(counts)
+    u_counts[:U] = narrow(totals)
+    # Drop the trailing group when it sums to 0 (the all-sentinel group of
+    # empty rows), exactly as the JAX version does.
+    num_unique = U - int(U > 0 and int(totals[-1]) == 0)
+    return u_lanes, u_counts, num_unique

@@ -1,0 +1,39 @@
+"""uint32 values carried in ``torch.int32`` tensors.
+
+torch's uint32 dtype cannot shift, compare or add on the CPU, so the port
+stores key lanes and counts as int32 tensors holding the uint32 bit
+pattern (the CUDA kernels read them as ``uint32_t*``).  Plain torch code
+widens to int64 (values 0..2^32-1) before any compare, shift or add and
+narrows back afterwards; numpy uint32 appears only at the host boundary.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+MASK = 0xFFFFFFFF
+# The all-ones sentinel key lane (0xFFFFFFFF) as an int32 bit pattern.
+SENTINEL = -1
+
+
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns → int64 values in [0, 2^32)."""
+    return x.to(torch.int64) & MASK
+
+
+def narrow(x: torch.Tensor) -> torch.Tensor:
+    """int64 values (taken mod 2^32) → int32 bit patterns."""
+    x = x & MASK
+    return (x - ((x >> 31) << 32)).to(torch.int32)
+
+
+def from_numpy(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """numpy uint32 → int32 tensor with the same bits on ``device``."""
+    a = np.array(a, dtype=np.uint32, order="C").view(np.int32)  # a copy
+    return torch.from_numpy(a).to(device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """int32 tensor → numpy uint32 with the same bits (host copy)."""
+    return t.detach().cpu().contiguous().numpy().view(np.uint32)

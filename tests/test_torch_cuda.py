@@ -1,0 +1,203 @@
+"""The CUDA kernel against its plain torch version, on the card.
+
+Every test here needs an NVIDIA GPU (marker ``gpu``) and skips without
+one.  This file imports no JAX — the card machine has none — so run it
+without the repo's conftest (which configures JAX):
+
+    python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
+
+Its case builders are shared with tests/test_torch_merge_fold_compact.py
+(the plain version against the JAX Pallas kernel) and chip_smoke.py.
+Tolerance: bit-exact equality — everything is integer.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+# Rows per merge tile: the CUDA kernel's rows per block, and the Pallas
+# tile the JAX package's interpret-mode tests use.
+TILE = 1024
+M = 0xFFFFFFFF
+
+
+def _sorted_rows(rows: np.ndarray) -> np.ndarray:
+    return rows[np.lexsort(rows.T[::-1])] if len(rows) else rows
+
+
+def _case(a_rows, a_counts, b_rows_asc, b_live_asc):
+    """Kernel operands from row-major pieces: A [na, NL] ascending with
+    counts; B [nb, NL] ascending with liveness, stored DESCENDING."""
+    a_rows = np.asarray(a_rows, np.uint32)
+    b_rows_asc = np.asarray(b_rows_asc, np.uint32)
+    return (
+        np.ascontiguousarray(a_rows.T),
+        np.asarray(a_counts, np.uint32),
+        np.ascontiguousarray(b_rows_asc[::-1].T),
+        np.ascontiguousarray(np.asarray(b_live_asc, np.uint32)[::-1]),
+    )
+
+
+def random_case(rng, NL, na, nb, pool=None, sent_frac=0.05, dead_frac=0.1):
+    """A consolidation-shaped case: A = unique sorted prefix rows with
+    counts (some near 2^32) and a sentinel/0 tail; B = raw rows drawn with
+    repeats from the same key pool, with masked windows (sentinel, live)
+    and dead rows (all-zero key, liveness 0)."""
+    pool = pool or max((na + nb) // 3, 4)
+    keys = rng.integers(0, 2**32, (pool, NL), dtype=np.uint64).astype(np.uint32)
+    keys[0] = 0  # the A^k key collides with dead rows
+    a_rows = np.unique(keys[rng.integers(0, pool, na)], axis=0)[: int(na * 0.8)]
+    n_live_a = len(a_rows)
+    a_counts = rng.integers(1, 6, n_live_a).astype(np.uint32)
+    a_counts[rng.random(n_live_a) < 0.02] = rng.integers(2**31, 2**32, dtype=np.uint64)
+    a_rows = np.vstack([a_rows, np.full((na - n_live_a, NL), M, np.uint32)])
+    a_counts = np.concatenate([a_counts, np.zeros(na - n_live_a, np.uint32)])
+    b_rows = keys[rng.integers(0, pool, nb)]
+    n_sent, n_dead = int(nb * sent_frac), int(nb * dead_frac)
+    b_rows[:n_sent] = M
+    b_rows = _sorted_rows(b_rows)
+    b_live = np.ones(nb, np.uint32)
+    b_rows[:n_dead] = 0
+    b_live[:n_dead] = 0
+    return (NL, *_case(a_rows, a_counts, b_rows, b_live))
+
+
+def _dead_rows_collide(rng):
+    # genuine A^k rows (all-zero key) in A and live in B, next to dead
+    # all-zero rows of B: the run total is the genuine multiplicity only
+    NL, na, nb = 2, TILE, TILE
+    a = _sorted_rows(rng.integers(0, 8, (na, NL)).astype(np.uint32))
+    b = _sorted_rows(rng.integers(0, 8, (nb, NL)).astype(np.uint32))
+    b[: TILE // 4] = 0
+    live = np.ones(nb, np.uint32)
+    live[: TILE // 8] = 0
+    return (NL, *_case(a, np.ones(na, np.uint32), b, live))
+
+
+def _run_spans_all_tiles(rng):
+    NL, na, nb = 1, 2 * TILE, 2 * TILE
+    return (NL, *_case(np.full((na, 1), 7), np.ones(na), np.full((nb, 1), 7),
+                       rng.integers(0, 2, nb)))
+
+
+def _run_ends_on_tile_edge(rng):
+    NL = 2
+    half = np.concatenate([np.full((TILE // 2, NL), 5), np.full((TILE // 2, NL), 9)])
+    return (NL, *_case(half, np.ones(TILE), half, np.ones(TILE)))
+
+
+def _count_wraparound(rng):
+    # key 3 totals exactly 2^32 and is dropped; key 4 wraps to 2^31
+    h = TILE // 2
+    a = np.repeat([[3], [4]], h, axis=0)
+    ac = np.concatenate([np.full(h, 1 << 23), np.full(h, 3 << 22)])
+    ac[0] -= h  # B adds h live rows of key 3: h * 2^23 = 2^32
+    b = np.repeat([[3], [6]], h, axis=0)
+    return (1, *_case(a, ac, b, np.ones(TILE)))
+
+
+def _na_much_larger(rng):
+    return random_case(rng, 4, 4 * TILE - 128, 128)
+
+
+def _na_much_smaller(rng):
+    return random_case(rng, 7, 128, 4 * TILE - 128)
+
+
+def _only_sentinels_and_dead(rng):
+    NL, na, nb = 2, TILE, TILE
+    return (NL, *_case(np.full((na, NL), M), np.zeros(na), np.vstack(
+        [np.zeros((nb // 2, NL)), np.full((nb // 2, NL), M)]),
+        np.concatenate([np.zeros(nb // 2), np.ones(nb // 2)])))
+
+
+EDGE_CASES = {
+    "dead_rows_collide_with_a_zero_key": _dead_rows_collide,
+    "run_spans_all_tiles": _run_spans_all_tiles,
+    "run_ends_on_tile_edge": _run_ends_on_tile_edge,
+    "count_wraparound": _count_wraparound,
+    "na_much_larger_than_nb": _na_much_larger,
+    "na_much_smaller_than_nb": _na_much_smaller,
+    "only_sentinels_and_dead_rows": _only_sentinels_and_dead,
+}
+
+
+def operands(case, device):
+    """Case → (a_ops, b_desc_ops, num_keys) as int32 tensors on device."""
+    from kmer_counter_tpu_torch.ops.u32 import from_numpy
+
+    NL, a, ac, bd, bc = case
+    a_ops = [from_numpy(a[i], device) for i in range(NL)] + [from_numpy(ac, device)]
+    b_ops = [from_numpy(bd[i], device) for i in range(NL)] + [from_numpy(bc, device)]
+    return a_ops, b_ops, NL
+
+
+# ---- tests on the card -----------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
+    return torch.device("cuda")
+
+
+def _kernel_vs_plain(case, device):
+    from kmer_counter_tpu_torch.ops import merge_fold_compact as mfc
+
+    a_ops, b_ops, NL = operands(case, device)
+    before = mfc.launches
+    out, live = mfc.merge_fold_compact(a_ops, b_ops, NL)
+    torch.cuda.synchronize()
+    assert mfc.launches == before + (1 if a_ops[0].numel() + b_ops[0].numel() else 0)
+    want, want_live = mfc.merge_fold_compact_reference(a_ops, b_ops, NL)
+    assert int(live) == int(want_live)
+    assert torch.equal(out, want)
+
+
+@pytest.mark.gpu
+def test_kernel_tile_matches_case_tile(cuda):
+    from kmer_counter_tpu_torch.ops import merge_fold_compact as mfc
+
+    assert mfc.tile_rows() == TILE
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(EDGE_CASES))
+def test_kernel_edge_cases(cuda, name):
+    _kernel_vs_plain(EDGE_CASES[name](np.random.default_rng(0)), cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("NL", range(1, 9))
+def test_kernel_random(cuda, NL):
+    # ragged sizes: na + nb is no multiple of the tile
+    _kernel_vs_plain(random_case(np.random.default_rng(NL), NL, 21_001, 150_007), cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("na,nb", [(0, 3000), (3000, 0), (1, 1), (0, 0)])
+def test_kernel_empty_and_tiny_sides(cuda, na, nb):
+    _kernel_vs_plain(random_case(np.random.default_rng(na + nb), 2, na, nb), cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,canonical", [(15, False), (16, False), (55, False), (101, True)])
+def test_cli_on_cuda_matches_golden(cuda, tmp_path, k, canonical):
+    from kmer_counter_tpu import golden
+    from kmer_counter_tpu.utils import seqgen
+    from kmer_counter_tpu_torch.__main__ import main
+
+    rng = np.random.default_rng(k)
+    reads = seqgen.sample_reads(rng, seqgen.random_genome(rng, 20_000), 600, 150, 0.01)
+    reads[3] = ord("T")
+    seqgen.write_fastq_file(os.path.join(tmp_path, "in", "a.fastq"), reads[:300])
+    seqgen.write_fastq_file(os.path.join(tmp_path, "in", "b.fastq"), reads[300:])
+    out = tmp_path / "out.bin"
+    rc = main([f"kmerLength={k}", f"canonical={str(canonical).lower()}",
+               f"inputFileLocation={tmp_path / 'in'}", f"outputFile={out}",
+               "tableSlots=20000", "verbose=0"])
+    assert rc == 0
+    assert out.read_bytes() == golden.serialize_counter(golden.count_reads(reads, k, canonical))

@@ -1,0 +1,116 @@
+"""The torch port imports no JAX, and asking it for CUDA without a GPU fails
+loudly instead of running on the CPU."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from kmer_counter_tpu.config import Options
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PORT_MODULES = [
+    "kmer_counter_tpu_torch",
+    "kmer_counter_tpu_torch.__main__",
+    "kmer_counter_tpu_torch.cuda_build",
+    "kmer_counter_tpu_torch.engine",
+    "kmer_counter_tpu_torch.ops",
+    "kmer_counter_tpu_torch.ops.encode",
+    "kmer_counter_tpu_torch.ops.extract",
+    "kmer_counter_tpu_torch.ops.merge_fold_compact",
+    "kmer_counter_tpu_torch.ops.pipeline",
+    "kmer_counter_tpu_torch.ops.sortcount",
+    "kmer_counter_tpu_torch.ops.table2",
+    "kmer_counter_tpu_torch.ops.u32",
+]
+
+
+def _clean_env():
+    env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
+    env["PYTHONPATH"] = REPO
+    return env
+
+
+def test_port_lists_every_module():
+    pkg = os.path.join(REPO, "kmer_counter_tpu_torch")
+    found = set()
+    for root, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(root, f), REPO)[:-3].replace(os.sep, ".")
+                found.add(rel.removesuffix(".__init__"))
+    assert found == set(PORT_MODULES)
+
+
+def test_port_imports_no_jax():
+    # A subprocess: this test process already imported jax (conftest).
+    code = (
+        "import importlib, sys\n"
+        f"for m in {PORT_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=_clean_env(),
+        cwd=REPO, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_engine_refuses_cuda_without_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU")
+    from kmer_counter_tpu_torch.engine import CountEngine
+
+    opts = Options(kmer_length=15, input_dir=str(tmp_path), output_file=str(tmp_path / "o.bin"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        CountEngine(opts, device=torch.device("cuda"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        CountEngine(opts)  # the default device is cuda
+
+
+def test_cli_count_fails_without_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU")
+    (tmp_path / "in").mkdir()
+    (tmp_path / "in" / "a.fastq").write_text("@r\nACGTACGTACGTACGTACGT\n+\nIIIIIIIIIIIIIIIIIIII\n")
+    out = tmp_path / "o.bin"
+    proc = subprocess.run(
+        [sys.executable, "-m", "kmer_counter_tpu_torch", "kmerLength=9",
+         f"inputFileLocation={tmp_path / 'in'}", f"outputFile={out}", "verbose=0"],
+        capture_output=True, text=True, env=_clean_env(), cwd=REPO, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert not out.exists()
+
+
+@pytest.mark.parametrize(
+    "kw,what",
+    [
+        ({"table_impl": "one"}, "tableImpl=one"),
+        ({"mesh_shape": (2,)}, "mesh"),
+        ({"checkpoint_dir": "ck"}, "checkpoint"),
+        ({"profile": True}, "profile"),
+    ],
+)
+def test_unported_options_raise(tmp_path, kw, what):
+    from kmer_counter_tpu_torch.engine import CountEngine
+
+    opts = Options(kmer_length=15, input_dir=str(tmp_path), output_file=str(tmp_path / "o"), **kw)
+    with pytest.raises(NotImplementedError, match=what):
+        CountEngine(opts, device=torch.device("cpu"))
+
+
+def test_kernel_wrapper_has_no_fallback_for_other_devices():
+    from kmer_counter_tpu_torch.ops.merge_fold_compact import merge_fold_compact
+
+    ops = [torch.zeros(4, dtype=torch.int32, device="meta") for _ in range(2)]
+    with pytest.raises(RuntimeError, match="no kernel"):
+        merge_fold_compact(ops, ops, 1)

@@ -1,0 +1,168 @@
+"""Port two-level table (ops.table2) vs the JAX two-level table and golden.
+
+Chunk rounds go through the port's table (append, consolidate3 with the
+merge-fold-compact plain version on CPU, grow2, finalize_host) and
+through the JAX table (append_raw, consolidate2 on CPU, finalize_host);
+the finalized outputs must be equal, and equal to golden.
+table_from_numpy / table_to_numpy carry one identical state across.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kmer_counter_tpu import golden, records
+from kmer_counter_tpu.ops import table2 as jt2
+from kmer_counter_tpu.ops.pipeline import extract_chunk_keys as jax_extract
+from kmer_counter_tpu_torch.ops import table2 as t2
+from kmer_counter_tpu_torch.ops.pipeline import count_step_two_level
+
+from conftest import random_reads
+
+CPU = torch.device("cpu")
+
+
+def port_rounds(chunks, k, canonical, cp, cr, consolidate_every=None):
+    """The engine's loop in small: consolidate when the raw region is full
+    (or every few chunks), pre-growing the prefix to live + raw first."""
+    table = t2.make_table2(cp, cr, records.active_lanes(k), CPU)
+    live = 0
+    for i, reads in enumerate(chunks):
+        width = reads.shape[0] * (reads.shape[1] - k + 1)
+        if table.raw_off + width > table.raw_lanes.shape[1] or (
+            consolidate_every and i and i % consolidate_every == 0
+        ):
+            if live + table.raw_off > table.prefix_lanes.shape[1]:
+                table = t2.grow2(table, live + table.raw_off, cr)
+            table, live, lost = t2.consolidate3(table)
+            assert lost == 0
+        count_step_two_level(table, torch.from_numpy(reads), k, canonical)
+    if live + table.raw_off > table.prefix_lanes.shape[1]:
+        table = t2.grow2(table, live + table.raw_off, cr)
+    return table
+
+
+def jax_rounds(chunks, k, canonical, cp, cr, consolidate_every=None):
+    table = jt2.make_table2(cp, cr, records.active_lanes(k))
+    for i, reads in enumerate(chunks):
+        lanes, allt = jax_extract(jnp.asarray(reads), k, canonical)
+        if int(table.raw_off) + lanes.shape[1] > cr or (
+            consolidate_every and i and i % consolidate_every == 0
+        ):
+            table, _, lost = jt2.consolidate2(table)
+            assert int(lost) == 0
+        table = jt2.append_raw(table, lanes, allt)
+    return table
+
+
+def golden_table(chunks, k, canonical):
+    words, counts = golden.table_from_counter(golden.count_reads(np.vstack(chunks), k, canonical))
+    return records.words_to_lanes(words)[:, : records.active_lanes(k)], counts
+
+
+def assert_same(port_out, jax_out, want):
+    for got in (port_out, jax_out):
+        np.testing.assert_array_equal(got[0], want[0].reshape(got[0].shape))
+        np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("k", [4, 15, 31, 55])
+@pytest.mark.parametrize("canonical", [False, True])
+def test_rounds_match_jax_and_golden(rng, k, canonical):
+    L = max(k + 9, 40)
+    chunks = [random_reads(rng, 12, L, invalid_frac=0.05) for _ in range(5)]
+    P = L - k + 1
+    # the port starts from a tiny prefix, so it must grow; JAX's is sized
+    port = port_rounds(chunks, k, canonical, cp=16, cr=2 * 12 * P, consolidate_every=2)
+    jax_t = jax_rounds(chunks, k, canonical, cp=4 * 12 * P, cr=2 * 12 * P, consolidate_every=2)
+    assert port.prefix_lanes.shape[1] > 16
+    assert_same(t2.finalize_host(port, k), jt2.finalize_host(jax_t, k), golden_table(chunks, k, canonical))
+
+
+@pytest.mark.parametrize("canonical", [False, True])
+def test_all_t_side_count_k16(rng, canonical):
+    k = 16
+    base = random_reads(rng, 6, 40, invalid_frac=0.02)
+    allt_reads = np.full((3, 40), ord("T"), np.uint8)
+    allt_reads[1, 5] = ord("N")
+    chunks = [base, allt_reads, base]
+    port = port_rounds(chunks, k, canonical, cp=64, cr=256, consolidate_every=1)
+    jax_t = jax_rounds(chunks, k, canonical, cp=4096, cr=256, consolidate_every=1)
+    assert (int(port.allt) > 0) == (not canonical)
+    port_out = t2.finalize_host(port, k)
+    assert_same(port_out, jt2.finalize_host(jax_t, k), golden_table(chunks, k, canonical))
+    if not canonical:  # T^k is re-materialized as the last, maximum record
+        assert (port_out[0][-1] == 0xFFFFFFFF).all()
+
+
+@pytest.mark.parametrize("k,canonical", [(15, False), (31, True), (55, False)])
+def test_identical_state_carried_from_jax(rng, k, canonical):
+    """A JAX table mid-run (consolidated prefix + pending raw rows) becomes a
+    port table through table_from_numpy; both finalize to the same table."""
+    L = k + 15
+    chunks = [random_reads(rng, 10, L, invalid_frac=0.03) for _ in range(3)]
+    P = L - k + 1
+    jax_t = jax_rounds(chunks, k, canonical, cp=8 * 10 * P, cr=2 * 10 * P, consolidate_every=2)
+    assert int(jax_t.raw_off) > 0
+    pl, pc = np.asarray(jax_t.prefix_lanes), np.asarray(jax_t.prefix_counts)
+    # consolidate2's prefix is ascending with (sentinel, 0) empty slots and
+    # at most two rows per key: a valid K1 input as it stands
+    assert (np.lexsort(pl[::-1]) == np.arange(pl.shape[1])).all()  # stable: sorted ⇔ identity
+    assert (pl[:, pc == 0] == 0xFFFFFFFF).all()
+    port = t2.table_from_numpy(pl, pc, np.asarray(jax_t.raw_lanes), int(jax_t.raw_off),
+                               int(jax_t.allt), CPU)
+    port = t2.grow2(port, pl.shape[1] + port.raw_off, port.raw_lanes.shape[1])
+    assert_same(t2.finalize_host(port, k), jt2.finalize_host(jax_t, k), golden_table(chunks, k, canonical))
+
+
+def test_table_numpy_round_trip(rng):
+    state = (
+        rng.integers(0, 2**32, (3, 40), dtype=np.uint64).astype(np.uint32),
+        rng.integers(0, 2**32, 40, dtype=np.uint64).astype(np.uint32),
+        rng.integers(0, 2**32, (3, 30), dtype=np.uint64).astype(np.uint32),
+        7,
+        0xFFFFFFF0,
+    )
+    back = t2.table_to_numpy(t2.table_from_numpy(*state, CPU))
+    for got, want in zip(back, state):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_grow2_pads_with_sentinel_and_keeps_state():
+    table = t2.make_table2(4, 6, 2, CPU)
+    table.prefix_lanes[:, :2] = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+    table.prefix_counts[:2] = torch.tensor([5, 6], dtype=torch.int32)
+    table.raw_lanes[:, :3] = 9
+    table.raw_off = 3
+    grown = t2.grow2(table, 10, 8)
+    pl, pc, rl, off, allt = t2.table_to_numpy(grown)
+    assert pl.shape == (2, 10) and rl.shape == (2, 8) and off == 3
+    assert (pl[:, 2:] == 0xFFFFFFFF).all() and (pc[2:] == 0).all()
+    np.testing.assert_array_equal(pl[:, :2], [[1, 2], [3, 4]])
+    np.testing.assert_array_equal(rl[:, :3], 9)
+    assert t2.grow2(grown, 12, 8).raw_lanes is grown.raw_lanes  # same raw size: shared
+    with pytest.raises(ValueError):
+        t2.grow2(grown, 5, 8)
+
+
+def test_consolidate3_reports_lost_and_finalize_raises(rng):
+    k = 15
+    reads = random_reads(rng, 8, 40)
+    table = t2.make_table2(4, 8 * 26, 1, CPU)  # far too small a prefix
+    count_step_two_level(table, torch.from_numpy(reads), k, False)
+    _, live, lost = t2.consolidate3(t2.make_table2(4, 8 * 26, 1, CPU))
+    assert (live, lost) == (0, 0)
+    with pytest.raises(RuntimeError, match="truncated"):
+        t2.finalize_host(table, k)
+    _, live, lost = t2.consolidate3(table)
+    assert live == 4 and lost > 0
+
+
+def test_finalize_raises_when_all_t_key_leaked():
+    table = t2.make_table2(4, 4, 1, CPU)
+    table.prefix_lanes[0, 0] = -1  # the all-T key inside the stream
+    table.prefix_counts[0] = 2
+    table.allt += 1
+    with pytest.raises(RuntimeError, match="all-T key present"):
+        t2.finalize_host(table, 16)
