@@ -45,12 +45,19 @@
 #include <cuda_runtime.h>
 #include <cub/block/block_scan.cuh>
 
+#include "lanes.cuh"
+
 namespace {
+
+using lanes::key_le;
+using lanes::merge_path_split;
+using lanes::Ops;
+using lanes::OutOps;
+using lanes::smem_le;
 
 constexpr int kThreads = 256;
 constexpr int kItems = 4;
 constexpr int kTile = kThreads * kItems;  // merged rows per block
-constexpr int kMaxOps = 9;                // 8 key lanes + count
 
 // Rows of the per-tile stats array [kNumStats, num_tiles] (int64).
 enum Stat {
@@ -63,22 +70,6 @@ enum Stat {
   kTail,         // counts after the tile's last run end (if it has one)
   kNumStats
 };
-
-struct Ops {
-  const uint32_t* p[kMaxOps];
-};
-struct OutOps {
-  uint32_t* p[kMaxOps];
-};
-
-template <int NL>
-__device__ __forceinline__ bool key_le(const uint32_t* x, const uint32_t* y) {
-#pragma unroll
-  for (int l = 0; l < NL; ++l) {
-    if (x[l] != y[l]) return x[l] < y[l];
-  }
-  return true;
-}
 
 template <int NL>
 __device__ __forceinline__ void load_a(const Ops& a, long long i, uint32_t* key) {
@@ -102,15 +93,6 @@ struct TileSmem {
   int has_prev;
   int has_next;
 };
-
-template <int NL>
-__device__ __forceinline__ bool smem_le(const TileSmem<NL>& sm, int x, int y) {
-#pragma unroll
-  for (int l = 0; l < NL; ++l) {
-    if (sm.ops[l][x] != sm.ops[l][y]) return sm.ops[l][x] < sm.ops[l][y];
-  }
-  return true;
-}
 
 template <int NL>
 __device__ __forceinline__ bool smem_eq(const TileSmem<NL>& sm, int x, int y) {
@@ -146,20 +128,12 @@ __global__ void splits_kernel(Ops a, Ops b, long long na, long long nb,
   if (t > num_tiles) return;
   const long long n = na + nb;
   const long long d = t * kTile < n ? t * kTile : n;
-  long long lo = d > nb ? d - nb : 0;
-  long long hi = d < na ? d : na;
-  uint32_t ka[NL], kb[NL];
-  while (lo < hi) {
-    const long long mid = (lo + hi) >> 1;
-    load_a<NL>(a, mid, ka);
-    load_b_asc<NL>(b, nb, d - 1 - mid, kb);
-    if (key_le<NL>(ka, kb)) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  splits[t] = lo;
+  splits[t] = merge_path_split(d, na, nb, [&](long long i, long long j) {
+    uint32_t ka[NL], kb[NL];
+    load_a<NL>(a, i, ka);
+    load_b_asc<NL>(b, nb, j, kb);
+    return key_le<NL>(ka, kb);
+  });
 }
 
 // Stages tile t's windows of A and B in shared memory and merges them in
@@ -215,15 +189,9 @@ __device__ int merge_tile(const Ops& a, const Ops& b, long long na, long long nb
 
   // Thread i merges output rows [i*kItems, (i+1)*kItems) of the tile.
   const int diag = min((int)threadIdx.x * kItems, len);
-  int lo = max(0, diag - lb), hi = min(diag, la);
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (smem_le<NL>(sm, mid, la + diag - 1 - mid)) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
+  const int lo = merge_path_split(diag, la, lb, [&](int i, int j) {
+    return smem_le<NL>(sm, i, la + j);
+  });
   int ia = lo, ib = la + diag - lo;
   uint32_t reg[kItems][NL + 1];
 #pragma unroll
@@ -401,13 +369,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-Ops make_ops(const void* const* ptrs, int n_ops) {
-  Ops o{};
-  for (int i = 0; i < n_ops; ++i) o.p[i] = static_cast<const uint32_t*>(ptrs[i]);
-  return o;
-}
-
-long long num_tiles(long long n) { return (n + kTile - 1) / kTile; }
+long long num_tiles(long long n) { return lanes::num_tiles(n, kTile); }
 
 template <int NL>
 int run_stats(const Ops& a, const Ops& b, long long na, long long nb, long long* splits,
@@ -445,8 +407,8 @@ int mfc_num_stats() { return kNumStats; }
 // [kNumStats, num_tiles] int64.  Returns a cudaError_t.
 int mfc_stats(const void* const* a_ptrs, const void* const* b_ptrs, int num_keys,
               long long na, long long nb, void* splits, void* stats, void* stream) {
-  const Ops a = make_ops(a_ptrs, num_keys + 1);
-  const Ops b = make_ops(b_ptrs, num_keys + 1);
+  const Ops a = lanes::make_ops(a_ptrs, num_keys + 1);
+  const Ops b = lanes::make_ops(b_ptrs, num_keys + 1);
   auto* sp = static_cast<long long*>(splits);
   auto* st = static_cast<long long*>(stats);
   auto s = static_cast<cudaStream_t>(stream);
@@ -470,10 +432,9 @@ int mfc_compact(const void* const* a_ptrs, const void* const* b_ptrs,
                 void* const* out_ptrs, int num_keys, long long na, long long nb,
                 const void* splits, const void* carry, const void* out_off,
                 const void* live_total, void* stream) {
-  const Ops a = make_ops(a_ptrs, num_keys + 1);
-  const Ops b = make_ops(b_ptrs, num_keys + 1);
-  OutOps out{};
-  for (int i = 0; i <= num_keys; ++i) out.p[i] = static_cast<uint32_t*>(out_ptrs[i]);
+  const Ops a = lanes::make_ops(a_ptrs, num_keys + 1);
+  const Ops b = lanes::make_ops(b_ptrs, num_keys + 1);
+  const OutOps out = lanes::make_out_ops(out_ptrs, num_keys + 1);
   auto* sp = static_cast<const long long*>(splits);
   auto* ca = static_cast<const long long*>(carry);
   auto* off = static_cast<const long long*>(out_off);

@@ -3,9 +3,12 @@
 Each source is compiled with nvcc into a shared library with a plain C
 interface and loaded with ctypes — no PyTorch headers, so a build takes
 seconds.  Libraries go to ``_build/`` beside this file (listed in
-.gitignore), named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads at once.  The build runs at
-first use, never at import.
+.gitignore), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds
+and an unchanged one loads at once.  The build runs at first use, never
+at import.  Each source has its own lock, so different sources may build
+at once, from different threads: a caller that needs every kernel (as
+chip_smoke.py does) then waits for the slowest nvcc, not for the sum.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _locks
+_locks: dict[str, threading.Lock] = {}  # one per source
 _loaded: dict[str, ctypes.CDLL] = {}
 # Per source: seconds spent in nvcc (0.0 when a cached build was loaded)
 # and the compiler's register/shared-memory report (-Xptxas -v).
@@ -54,10 +58,16 @@ def nvcc_path() -> str:
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; raises on failure."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _loaded:
             return _loaded[name]
         src = CSRC / f"{name}.cu"
-        tag = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        digest = hashlib.sha256(src.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):
+            digest.update(header.read_bytes())
+        digest.update(" ".join(NVCC_FLAGS).encode())
+        tag = digest.hexdigest()[:16]
         lib_path = BUILD_DIR / f"lib{name}-{tag}.so"
         build_seconds[name] = 0.0
         if not lib_path.exists():

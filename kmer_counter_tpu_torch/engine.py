@@ -1,15 +1,22 @@
 """Orchestrator: the chunked count loop over a FASTQ directory —
-counterpart of kmer_counter_tpu.engine (single device, two-level table).
+counterpart of kmer_counter_tpu.engine (single device).
 
 A prefetch thread parses chunks (io.fastq) while the main thread enqueues
-each chunk's extract + raw append on the device; when the raw region is
-full the table consolidates through the merge-fold-compact kernel.  The
-host mirrors the raw offset exactly, so no chunk step waits on the device;
-consolidations read back only the live row count.
+each chunk's extract + append on the device.  Two tables:
 
-Not ported yet (each raises NotImplementedError): the one-level table
-(``tableImpl=one``), the multi-device mesh engine (``meshShape`` or more
-than one rank), checkpoints, ``profile=true``, and spilling to disk.
+  * two-level (``tableImpl=two``, and ``auto``): keys go to a raw region;
+    when it is full the table consolidates through the merge-fold-compact
+    kernel (ops.table2);
+  * one-level (``tableImpl=one``): keys with 0/1 counts go to one append
+    buffer; when it is full, ``sort_reduce`` over the whole buffer (the
+    multi-lane sort kernel) collapses duplicates (ops.table).
+
+The host mirrors the append offsets exactly, so no chunk step waits on the
+device; consolidations read back only the live row count.
+
+Not ported yet (each raises NotImplementedError): the multi-device mesh
+engine (``meshShape`` or more than one rank), checkpoints,
+``profile=true``, and spilling to disk.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ from kmer_counter_tpu.config import Options
 from kmer_counter_tpu.io.dump import dump_table
 from kmer_counter_tpu.io.fastq import DirectoryInput, ParallelIngest
 from kmer_counter_tpu.metrics import Metrics
+from kmer_counter_tpu_torch.ops.pipeline import chunk_slots
+from kmer_counter_tpu_torch.ops.u32 import to_numpy
 
 _END = object()
 
@@ -113,9 +122,7 @@ class CountEngine:
             raise ValueError("inputFileLocation is required")
         if opts.output_file is None:
             raise ValueError("outputFile is required")
-        if opts.table_impl == "one":
-            raise _not_ported("tableImpl=one (the one-level table)")
-        if opts.table_impl not in ("two", "auto"):
+        if opts.table_impl not in ("one", "two", "auto"):
             raise ValueError(f"unknown tableImpl {opts.table_impl!r}")
         if opts.mesh_shape is not None or int(os.environ.get("WORLD_SIZE", "1")) > 1:
             raise _not_ported("the multi-device mesh engine (meshShape / several ranks)")
@@ -144,10 +151,40 @@ class CountEngine:
         finally:
             out_q.put(_END)
 
-    def run(self) -> RunStats:
-        from kmer_counter_tpu_torch.ops import table2 as t2
-        from kmer_counter_tpu_torch.ops.pipeline import chunk_slots, count_step_two_level
+    def _chunks(self, source, reads_per_chunk, stats, metrics):
+        """The chunks that hold k-mers, as (reads ``[reads_per_chunk, L]
+        uint8``, worst-case slots), parsed ahead by the prefetch thread.
+        Every chunk's reads and bases are counted into ``stats``."""
+        k = self.opts.kmer_length
+        chunk_q: queue.Queue = queue.Queue(maxsize=max(self.opts.prefetch_chunks, 1))
+        ingest = threading.Thread(
+            target=self._ingest_worker,
+            args=(source, reads_per_chunk, chunk_q, metrics),
+            daemon=True,
+        )
+        ingest.start()
+        while True:
+            with metrics.timer("ingest_wait"):
+                item = chunk_q.get()
+            if item is _END:
+                break
+            if isinstance(item, Exception):
+                raise item
+            name = _file_key(item.path)
+            stats.reads += item.n_reads
+            stats.bases += item.n_reads * item.line_length
+            stats.per_file[name] = stats.per_file.get(name, 0) + item.n_reads
+            if item.line_length < k:
+                continue
+            reads = item.reads
+            if reads.shape[0] < reads_per_chunk:
+                pad = np.zeros((reads_per_chunk - reads.shape[0], reads.shape[1]), np.uint8)
+                reads = np.vstack([reads, pad])
+            yield reads, chunk_slots(reads_per_chunk, item.line_length, k)
+        ingest.join()
+        source.close()
 
+    def run(self) -> RunStats:
         opts = self.opts
         k = opts.kmer_length
         stats = RunStats()
@@ -166,6 +203,42 @@ class CountEngine:
             return stats
         line_length = max(usable)
         reads_per_chunk, table_slots = plan_chunks(opts, line_length)
+        chunks = self._chunks(source, reads_per_chunk, stats, metrics)
+        count = self._count_one_level if opts.table_impl == "one" else self._count_two_level
+        lanes_np, counts_np = count(chunks, line_length, reads_per_chunk, table_slots, stats, metrics)
+        stats.consolidations += 1  # the finalize's
+        stats.distinct_kmers = len(counts_np)
+        stats.total_kmers = int(counts_np.sum(dtype=np.uint64))
+        dump_table(opts.output_file, lanes_np, counts_np)
+        stats.wall_seconds = time.perf_counter() - t_start
+        for name, value in (
+            ("reads", stats.reads),
+            ("chunks", stats.chunks),
+            ("consolidations", stats.consolidations),
+            ("distinct_kmers", stats.distinct_kmers),
+        ):
+            metrics.count(name, value)
+        stats.metrics = metrics.snapshot()
+        if opts.verbose:
+            print(f"[metrics] {metrics.report()}")
+            print(
+                f"[engine] reads={stats.reads} bases={stats.bases} "
+                f"distinct={stats.distinct_kmers} total={stats.total_kmers} "
+                f"chunks={stats.chunks} consolidations={stats.consolidations} "
+                f"wall={stats.wall_seconds:.2f}s "
+                f"({stats.kmers_per_second/1e6:.2f}M kmers/s)"
+            )
+        return stats
+
+    def _count_two_level(self, chunks, line_length, reads_per_chunk, table_slots, stats, metrics):
+        """The two-level chunk loop (counterpart of
+        ``CountEngine._run_two_level``); returns the finalized (lanes,
+        counts) on the host."""
+        from kmer_counter_tpu_torch.ops import table2 as t2
+        from kmer_counter_tpu_torch.ops.pipeline import count_step_two_level
+
+        opts = self.opts
+        k = opts.kmer_length
         NL = records.active_lanes(k)
         # 1:7 prefix:raw split, as in the JAX engine: more chunks per
         # consolidation; the prefix grows on demand.
@@ -180,14 +253,6 @@ class CountEngine:
         table = t2.make_table2(cp, cr, NL, self.device)
         live_bound = 0  # prefix rows in use (exact after a consolidation)
         raw_bound = 0  # raw slots in use (host mirror of table.raw_off)
-
-        chunk_q: queue.Queue = queue.Queue(maxsize=max(opts.prefetch_chunks, 1))
-        ingest = threading.Thread(
-            target=self._ingest_worker,
-            args=(source, reads_per_chunk, chunk_q, metrics),
-            daemon=True,
-        )
-        ingest.start()
 
         def consolidate():
             # Pre-grow: live + raw bounds the distinct keys a consolidation
@@ -212,67 +277,73 @@ class CountEngine:
             if opts.temp_dir and cp + cr > self._max_table_slots(NL):
                 raise _not_ported("spilling to disk (tempFileLocation)")
 
-        cur_L = line_length
-        cur_slots = chunk_slots(reads_per_chunk, cur_L, k)
         with _start_monitor(opts, stats, lambda: f"raw={raw_bound}/{cr} live={live_bound}/{cp}"):
-            while True:
-                with metrics.timer("ingest_wait"):
-                    item = chunk_q.get()
-                if item is _END:
-                    break
-                if isinstance(item, Exception):
-                    raise item
-                name = _file_key(item.path)
-                stats.reads += item.n_reads
-                stats.bases += item.n_reads * item.line_length
-                stats.per_file[name] = stats.per_file.get(name, 0) + item.n_reads
-                if item.line_length < k:
-                    continue
-                if item.line_length != cur_L:
-                    cur_L = item.line_length
-                    cur_slots = chunk_slots(reads_per_chunk, cur_L, k)
-                reads = item.reads
-                if reads.shape[0] < reads_per_chunk:
-                    pad = np.zeros((reads_per_chunk - reads.shape[0], reads.shape[1]), np.uint8)
-                    reads = np.vstack([reads, pad])
-                if raw_bound + cur_slots > cr:
+            for reads, slots in chunks:
+                if raw_bound + slots > cr:
                     consolidate()
                     raw_bound = 0
                 with metrics.timer("dispatch"):
                     dev_reads = torch.from_numpy(reads).to(self.device)
                     count_step_two_level(table, dev_reads, k, opts.canonical)
-                raw_bound += cur_slots
+                raw_bound += slots
                 stats.chunks += 1
 
-        ingest.join()
-        source.close()
         if live_bound + raw_bound > cp:
             table = t2.grow2(table, live_bound + raw_bound, cr)
         with metrics.timer("finalize"):
-            lanes_np, counts_np = t2.finalize_host(table, k)
-        stats.consolidations += 1
-        stats.distinct_kmers = len(counts_np)
-        stats.total_kmers = int(counts_np.sum(dtype=np.uint64))
-        dump_table(opts.output_file, lanes_np, counts_np)
-        stats.wall_seconds = time.perf_counter() - t_start
-        for name, value in (
-            ("reads", stats.reads),
-            ("chunks", stats.chunks),
-            ("consolidations", stats.consolidations),
-            ("distinct_kmers", stats.distinct_kmers),
-        ):
-            metrics.count(name, value)
-        stats.metrics = metrics.snapshot()
+            # live_bound is exact here: a consolidation set it, and a merge
+            # of a non-empty raw region inside finalize_host replaces it.
+            return t2.finalize_host(table, k, live_bound)
+
+    def _count_one_level(self, chunks, line_length, reads_per_chunk, table_slots, stats, metrics):
+        """The one-level chunk loop (counterpart of
+        ``CountEngine._run_one_level``); returns the finalized (lanes,
+        counts) on the host."""
+        from kmer_counter_tpu_torch.ops import table as t1
+        from kmer_counter_tpu_torch.ops.pipeline import extract_chunk
+
+        opts = self.opts
+        k = opts.kmer_length
+        NL = records.active_lanes(k)
         if opts.verbose:
-            print(f"[metrics] {metrics.report()}")
             print(
-                f"[engine] reads={stats.reads} bases={stats.bases} "
-                f"distinct={stats.distinct_kmers} total={stats.total_kmers} "
-                f"chunks={stats.chunks} consolidations={stats.consolidations} "
-                f"wall={stats.wall_seconds:.2f}s "
-                f"({stats.kmers_per_second/1e6:.2f}M kmers/s)"
+                f"[engine] k={k} canonical={opts.canonical} L={line_length} "
+                f"reads/chunk={reads_per_chunk} table_slots={table_slots} "
+                f"device={self.device}"
             )
-        return stats
+        table = t1.make_table(table_slots, NL, self.device)
+        with _start_monitor(opts, stats, lambda: f"bound={table.offset}/{table.lanes.shape[1]}"):
+            for reads, slots in chunks:
+                if table.offset + slots > table.lanes.shape[1]:
+                    with metrics.timer("consolidate"):
+                        table = t1.consolidate(table)
+                    stats.consolidations += 1
+                    if table.offset + slots > table.lanes.shape[1]:
+                        if opts.temp_dir and 2 * table.lanes.shape[1] > self._max_table_slots(NL):
+                            raise _not_ported("spilling to disk (tempFileLocation)")
+                        table = self._grow_for(table, table.offset + slots)
+                with metrics.timer("dispatch"):
+                    dev_reads = torch.from_numpy(reads).to(self.device)
+                    t1.append(table, *extract_chunk(dev_reads, k, opts.canonical))
+                stats.chunks += 1
+
+        with metrics.timer("finalize"):
+            table = t1.consolidate(table)
+            n = table.offset
+            lanes = np.ascontiguousarray(to_numpy(table.lanes[:, :n]).T)
+            return lanes, to_numpy(table.counts[:n])
+
+    def _grow_for(self, table, needed_slots: int):
+        """Double the one-level table's capacity until ``needed_slots``
+        fit (cardinality outgrew the planned table)."""
+        from kmer_counter_tpu_torch.ops import table as t1
+
+        cap = table.lanes.shape[1]
+        while cap < needed_slots:
+            cap *= 2
+        if self.opts.verbose:
+            print(f"[engine] growing table to {cap} slots")
+        return t1.grow(table, cap)
 
     def _max_table_slots(self, NL: int) -> int:
         """The table size past which the JAX engine spills to disk."""

@@ -1,7 +1,9 @@
 """Per-chunk counting step — counterpart of kmer_counter_tpu.ops.pipeline.
 
-extract_chunk_keys: encode → extract → sentinel masking (+ the all-T side
-count); count_step_two_level: the same plus the append at ``raw_off``.
+extract_chunk: encode → extract, keys with 0/1 counts (the one-level
+table's chunk); extract_chunk_keys: the same with sentinel masking (+ the
+all-T side count); count_step_two_level: that plus the append at
+``raw_off``.
 """
 
 from __future__ import annotations
@@ -11,6 +13,26 @@ import torch
 from kmer_counter_tpu_torch.ops.encode import encode_reads
 from kmer_counter_tpu_torch.ops.extract import extract_kmer_lanes
 from kmer_counter_tpu_torch.ops.u32 import MASK, narrow
+
+
+def _extract_flat(reads: torch.Tensor, k: int, canonical: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """(lanes ``[NL, R*(L-k+1)] int64``, window validity ``[R*(L-k+1)]``),
+    read-major."""
+    codes, valid = encode_reads(reads)
+    lanes, wvalid = extract_kmer_lanes(codes, valid, k, canonical)
+    NL, R, P = lanes.shape
+    return lanes.reshape(NL, R * P), wvalid.reshape(R * P)
+
+
+def extract_chunk(
+    reads: torch.Tensor, k: int, canonical: bool = False
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk's raw k-mer records, unsorted: (lanes ``[NL, R*(L-k+1)]
+    int32``, counts ``int32``, 1 for a valid window and 0 for a masked
+    one).  No sentinel masking and no all-T side count: in the one-level
+    table the all-T k-mer is an ordinary all-ones key with count 1."""
+    flat, wv = _extract_flat(reads, k, canonical)
+    return narrow(flat), wv.to(torch.int32)
 
 
 def extract_chunk_keys(
@@ -24,11 +46,7 @@ def extract_chunk_keys(
     the sentinel, so those windows are tallied into ``allt`` instead
     (canonical(T^k) = A^k, so canonical runs never produce it).
     """
-    codes, valid = encode_reads(reads)
-    lanes, wvalid = extract_kmer_lanes(codes, valid, k, canonical)
-    NL, R, P = lanes.shape
-    flat = lanes.reshape(NL, R * P)
-    wv = wvalid.reshape(R * P)
+    flat, wv = _extract_flat(reads, k, canonical)
     if k % 16 == 0 and not canonical:
         is_allt = (flat == MASK).all(dim=0) & wv
         allt = is_allt.sum()

@@ -1,9 +1,10 @@
 """Multi-lane sort + segment reduce — counterpart of
 kmer_counter_tpu.ops.sortcount.
 
-On the TPU both are XLA's ``lax.sort`` plus boundary/cumsum arithmetic,
-not Pallas kernels, so they stay torch ops here; the hand-written
-multi-lane sort is later work.
+``device_sort`` is the hand-written multi-lane sort (ops.lane_sort, K6 +
+K7 in CUDA) that ``sort_reduce`` sorts with; ``lex_argsort`` is its
+plain version and stays the raw sort of ops.table2 (XLA's ``lax.sort`` on
+the TPU, not a Pallas kernel).
 
 Contract of ``sort_reduce`` (as in the JAX package): slots
 [0, num_unique) hold distinct keys ascending with their summed counts;
@@ -62,23 +63,36 @@ def run_totals(counts64: torch.Tensor, head_idx: torch.Tensor) -> torch.Tensor:
     return (csum[end_idx] - csum[head_idx] + counts64[head_idx]) & MASK
 
 
+def device_sort(keys: torch.Tensor, payload: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``keys [NL, N]`` sorted ascending with ``payload [N]`` riding along
+    (counterpart of sortcount.device_sort): ops.lane_sort.sort_ops."""
+    from kmer_counter_tpu_torch.ops.lane_sort import sort_ops
+
+    return sort_ops(keys, payload)
+
+
 def sort_reduce(
     lanes: torch.Tensor, counts: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor, int]:
     """Collapse duplicate keys: (unique_lanes ``[NL, N] int32``,
     unique_counts ``[N] int32``, num_unique).  Rows with count 0 are
     ignored (their keys become the sentinel, which sorts last)."""
-    NL, N = lanes.shape
-    if N == 0:
+    if lanes.shape[1] == 0:
         return lanes.clone(), counts.clone(), 0
     eff = torch.where(counts != 0, lanes, SENTINEL)
-    perm = lex_argsort(eff)
-    s = eff[:, perm]
-    c = widen(counts)[perm]
+    return reduce_sorted(*device_sort(eff, counts))
+
+
+def reduce_sorted(
+    s: torch.Tensor, counts: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """The second half of ``sort_reduce``: sorted keys ``s`` and their
+    counts → (unique_lanes, unique_counts, num_unique)."""
+    c = widen(counts)
     head_idx = torch.nonzero(run_heads(s)).squeeze(1)
     U = head_idx.shape[0]
     totals = run_totals(c, head_idx)
-    u_lanes = torch.full_like(lanes, SENTINEL)
+    u_lanes = torch.full_like(s, SENTINEL)
     u_lanes[:, :U] = s[:, head_idx]
     u_counts = torch.zeros_like(counts)
     u_counts[:U] = narrow(totals)

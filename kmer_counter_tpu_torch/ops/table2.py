@@ -120,25 +120,36 @@ def grow2(table: TwoLevelTable, prefix_slots: int, raw_slots: int) -> TwoLevelTa
     return TwoLevelTable(prefix_lanes, prefix_counts, raw_lanes, table.raw_off, table.allt)
 
 
-def finalize2(table: TwoLevelTable):
-    """(lanes [NL, CP], counts, num_unique) of the prefix per the
-    sort_reduce contract; the raw region must already be merged."""
-    return sort_reduce(table.prefix_lanes, table.prefix_counts)
+def finalize2(table: TwoLevelTable, live: int | None = None):
+    """(lanes, counts, num_unique) of the prefix per the sort_reduce
+    contract; the raw region must already be merged.
+
+    ``live`` is the exact count of prefix rows in use after a
+    consolidation (consolidate3 packs them, unique and ascending, to the
+    front): only those rows are sorted.  None sorts the whole prefix, as
+    for a table carried from the JAX package (table_from_numpy), whose
+    prefix may hold two rows of one key.
+    """
+    if live is None:
+        return sort_reduce(table.prefix_lanes, table.prefix_counts)
+    return sort_reduce(table.prefix_lanes[:, :live], table.prefix_counts[:live])
 
 
-def finalize_host(table: TwoLevelTable, k: int) -> tuple[np.ndarray, np.ndarray]:
+def finalize_host(table: TwoLevelTable, k: int, live: int | None = None) -> tuple[np.ndarray, np.ndarray]:
     """The checked host-side finalize: merges any outstanding raw region
     (a nonzero ``lost`` is a hard error), deduplicates, and re-materializes
-    the all-T record.  Returns (lanes ``[U, NL] uint32``, counts ``[U]
-    uint32``) sorted ascending, ready for io.dump.dump_table."""
+    the all-T record.  ``live``: the exact prefix rows in use, when the
+    caller holds it (see finalize2); a merge here supplies its own.
+    Returns (lanes ``[U, NL] uint32``, counts ``[U] uint32``) sorted
+    ascending, ready for io.dump.dump_table."""
     if table.raw_off > 0:
-        table, _live, lost = consolidate3(table)
+        table, live, lost = consolidate3(table)
         if lost:
             raise RuntimeError(
                 f"two-level consolidation truncated {lost} live records: "
                 "prefix region undersized (grow2 before finalize)"
             )
-    lanes, counts, n = finalize2(table)
+    lanes, counts, n = finalize2(table, live)
     NL = table.prefix_lanes.shape[0]
     out_lanes = to_numpy(lanes[:, :n]).T if n else np.zeros((0, NL), np.uint32)
     out_counts = to_numpy(counts[:n])

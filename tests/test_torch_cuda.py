@@ -1,4 +1,4 @@
-"""The CUDA kernel against its plain torch version, on the card.
+"""The CUDA kernels against their plain torch versions, on the card.
 
 Every test here needs an NVIDIA GPU (marker ``gpu``) and skips without
 one.  This file imports no JAX — the card machine has none — so run it
@@ -7,8 +7,10 @@ without the repo's conftest (which configures JAX):
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 
 Its case builders are shared with tests/test_torch_merge_fold_compact.py
-(the plain version against the JAX Pallas kernel) and chip_smoke.py.
-Tolerance: bit-exact equality — everything is integer.
+and tests/test_torch_lane_sort.py (the plain versions against the JAX
+package) and chip_smoke.py.  Tolerance: bit-exact equality — everything
+is integer.  The sort leaves the order among equal keys unspecified, so
+its payloads are compared as a multiset per key.
 """
 
 import os
@@ -134,6 +136,57 @@ def operands(case, device):
     return a_ops, b_ops, NL
 
 
+def _sort_case(keys, payload):
+    return np.ascontiguousarray(np.asarray(keys, np.uint32)), np.asarray(payload, np.uint32)
+
+
+def _sort_random(rng, NL, n, pool=None):
+    """Keys drawn with repeats from a pool (a fifth of the rows are
+    all-ones), payload = row index + 1."""
+    pool = pool or max(n // 3, 1)
+    keys = rng.integers(0, 2**32, (NL, pool), dtype=np.uint64).astype(np.uint32)
+    keys[:, : max(pool // 5, 1)] = M
+    return _sort_case(keys[:, rng.integers(0, pool, n)], np.arange(1, n + 1))
+
+
+def _sort_all_ones_across_tile_edges(rng):
+    # genuine all-ones keys with nonzero payloads, in clusters that
+    # straddle every tile edge of the kernel (1024 to 4096 rows a tile)
+    NL, n = 2, 3 * 4096 + 5
+    keys = rng.integers(0, 2**32, (NL, n), dtype=np.uint64).astype(np.uint32)
+    keys[:, rng.random(n) < 0.4] = M
+    for edge in range(1024, n, 1024):
+        keys[:, edge - 9 : edge + 9] = M
+    return _sort_case(keys, rng.integers(1, 2**32, n, dtype=np.uint64))
+
+
+SORT_CASES = {
+    "n_0": lambda rng: _sort_case(np.zeros((3, 0)), np.zeros(0)),
+    "n_1": lambda rng: _sort_case([[M], [5], [M], [0], [1]], [7]),
+    "below_one_tile": lambda rng: _sort_random(rng, 2, 700),
+    "ragged_n": lambda rng: _sort_random(rng, 3, 100_003),
+    "all_equal": lambda rng: _sort_case(np.full((2, 50_000), 7), np.arange(50_000)),
+    "all_ones_only": lambda rng: _sort_case(np.full((1, 9000), M), np.arange(1, 9001)),
+    "sorted": lambda rng: _sort_case(np.sort(_sort_random(rng, 4, 30_000)[0], axis=1), np.arange(30_000)),
+    "reversed": lambda rng: _sort_case(np.sort(_sort_random(rng, 4, 30_000)[0], axis=1)[:, ::-1],
+                                       np.arange(30_000)),
+    "all_ones_across_tile_edges": _sort_all_ones_across_tile_edges,
+    "payload_is_row_index": lambda rng: _sort_case(_sort_random(rng, 7, 77_777, pool=500)[0],
+                                                   np.arange(77_777)),
+}
+
+
+def sort_outputs_agree(got, want) -> bool:
+    """(keys, payload) pairs of torch tensors: keys bit-identical, and the
+    same payload multiset under each key."""
+    from kmer_counter_tpu_torch.ops.sortcount import lex_argsort
+
+    if not torch.equal(got[0], want[0]):
+        return False
+    rows = [torch.cat([k, p[None]]) for k, p in (got, want)]
+    return torch.equal(*[r[:, lex_argsort(r)] for r in rows])
+
+
 # ---- tests on the card -----------------------------------------------------
 
 
@@ -200,4 +253,94 @@ def test_cli_on_cuda_matches_golden(cuda, tmp_path, k, canonical):
                f"inputFileLocation={tmp_path / 'in'}", f"outputFile={out}",
                "tableSlots=20000", "verbose=0"])
     assert rc == 0
+    assert out.read_bytes() == golden.serialize_counter(golden.count_reads(reads, k, canonical))
+
+
+# ---- the multi-lane sort (K6 + K7) -------------------------------------------
+
+
+def _sort_vs_plain(case, device):
+    from kmer_counter_tpu_torch.ops import lane_sort as ls
+    from kmer_counter_tpu_torch.ops.u32 import from_numpy
+
+    keys, payload = from_numpy(case[0], device), from_numpy(case[1], device)
+    before = ls.launches
+    got = ls.sort_ops(keys, payload)
+    torch.cuda.synchronize()
+    assert ls.launches == before + (1 if payload.numel() else 0)
+    assert sort_outputs_agree(got, ls.sort_ops_reference(keys, payload))
+    return got
+
+
+@pytest.mark.gpu
+def test_sort_tile_rows(cuda):
+    from kmer_counter_tpu_torch.ops import lane_sort as ls
+
+    assert [ls.tile_rows(NL) for NL in range(1, 9)] == [4096, 2048, 2048] + [1024] * 5
+    assert ls.tile_rows(9) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("NL", range(1, 9))
+def test_sort_kernel_random(cuda, NL):
+    _sort_vs_plain(_sort_random(np.random.default_rng(NL), NL, 250_001 + NL), cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(SORT_CASES))
+def test_sort_kernel_cases(cuda, name):
+    _sort_vs_plain(SORT_CASES[name](np.random.default_rng(0)), cuda)
+
+
+@pytest.mark.gpu
+def test_sort_kernel_payload_is_a_permutation(cuda):
+    n = 1_000_003
+    keys, _ = _sort_random(np.random.default_rng(1), 2, n, pool=1000)
+    _, payload = _sort_vs_plain((keys, np.arange(n)), cuda)
+    assert torch.equal(torch.sort(payload).values, torch.arange(n, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.gpu
+def test_sort_failed_launch_raises_and_never_falls_back(cuda, monkeypatch):
+    from kmer_counter_tpu_torch.ops import lane_sort as ls
+
+    keys = torch.zeros((2, 10), dtype=torch.int32, device=cuda)
+    lib = ls._lib()
+    bad = ls._ptr_array([keys[0], keys[1], keys[0]])
+    assert lib.ls_leaf_sort(bad, bad, 9, 10, torch.cuda.current_stream().cuda_stream) != 0
+
+    class Refusing:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        @staticmethod
+        def ls_leaf_sort(*args):
+            return 9  # cudaErrorInvalidConfiguration
+
+    monkeypatch.setattr(ls, "_lib", Refusing)
+    before = ls.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ls.sort_ops(keys, keys[0].clone())
+    assert ls.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,canonical", [(15, False), (16, False), (55, False), (101, True)])
+def test_one_level_cli_on_cuda_matches_golden(cuda, tmp_path, k, canonical):
+    from kmer_counter_tpu import golden
+    from kmer_counter_tpu.utils import seqgen
+    from kmer_counter_tpu_torch.__main__ import main
+    from kmer_counter_tpu_torch.ops import lane_sort as ls
+
+    rng = np.random.default_rng(k)
+    reads = seqgen.sample_reads(rng, seqgen.random_genome(rng, 20_000), 600, 150, 0.01)
+    reads[3] = ord("T")  # the all-T key is an ordinary all-ones key here
+    seqgen.write_fastq_file(os.path.join(tmp_path, "in", "a.fastq"), reads)
+    out = tmp_path / "out.bin"
+    before = ls.launches
+    rc = main([f"kmerLength={k}", f"canonical={str(canonical).lower()}", "tableImpl=one",
+               f"inputFileLocation={tmp_path / 'in'}", f"outputFile={out}",
+               "tableSlots=20000", "readsPerChunk=100", "verbose=0"])
+    assert rc == 0
+    assert ls.launches >= before + 2  # a consolidation in the loop, and the finalize
     assert out.read_bytes() == golden.serialize_counter(golden.count_reads(reads, k, canonical))

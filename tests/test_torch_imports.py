@@ -20,9 +20,11 @@ PORT_MODULES = [
     "kmer_counter_tpu_torch.ops",
     "kmer_counter_tpu_torch.ops.encode",
     "kmer_counter_tpu_torch.ops.extract",
+    "kmer_counter_tpu_torch.ops.lane_sort",
     "kmer_counter_tpu_torch.ops.merge_fold_compact",
     "kmer_counter_tpu_torch.ops.pipeline",
     "kmer_counter_tpu_torch.ops.sortcount",
+    "kmer_counter_tpu_torch.ops.table",
     "kmer_counter_tpu_torch.ops.table2",
     "kmer_counter_tpu_torch.ops.u32",
 ]
@@ -94,7 +96,6 @@ def test_cli_count_fails_without_gpu(tmp_path):
 @pytest.mark.parametrize(
     "kw,what",
     [
-        ({"table_impl": "one"}, "tableImpl=one"),
         ({"mesh_shape": (2,)}, "mesh"),
         ({"checkpoint_dir": "ck"}, "checkpoint"),
         ({"profile": True}, "profile"),
@@ -114,3 +115,11 @@ def test_kernel_wrapper_has_no_fallback_for_other_devices():
     ops = [torch.zeros(4, dtype=torch.int32, device="meta") for _ in range(2)]
     with pytest.raises(RuntimeError, match="no kernel"):
         merge_fold_compact(ops, ops, 1)
+
+
+def test_sort_wrapper_has_no_fallback_for_other_devices():
+    from kmer_counter_tpu_torch.ops.lane_sort import sort_ops
+
+    keys = torch.zeros((2, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        sort_ops(keys, keys[0].clone())

@@ -166,3 +166,65 @@ def test_finalize_raises_when_all_t_key_leaked():
     table.allt += 1
     with pytest.raises(RuntimeError, match="all-T key present"):
         t2.finalize_host(table, 16)
+
+
+def _sorted_sizes(monkeypatch):
+    """Records the row count of every sort that sort_reduce makes."""
+    from kmer_counter_tpu_torch.ops import lane_sort
+
+    sizes, real = [], lane_sort.sort_ops
+
+    def recording(keys, payload):
+        sizes.append(keys.shape[1])
+        return real(keys, payload)
+
+    monkeypatch.setattr(lane_sort, "sort_ops", recording)
+    return sizes
+
+
+@pytest.mark.parametrize("k,canonical", [(16, False), (31, True), (55, False)])
+def test_finalize_with_live_bound_matches_whole_prefix(rng, monkeypatch, k, canonical):
+    L = k + 15
+    chunks = [random_reads(rng, 10, L, invalid_frac=0.03) for _ in range(3)]
+    chunks[1][2] = ord("T")
+    P = L - k + 1
+    port = port_rounds(chunks, k, canonical, cp=8 * 10 * P, cr=2 * 10 * P, consolidate_every=2)
+    port, live, lost = t2.consolidate3(port)
+    assert lost == 0 and 0 < live < port.prefix_lanes.shape[1]
+    sizes = _sorted_sizes(monkeypatch)
+    bounded = t2.finalize_host(port, k, live)
+    assert sizes == [live]  # only the live rows were sorted
+    whole = t2.finalize_host(port, k)
+    assert sizes[1:] == [port.prefix_lanes.shape[1]]
+    assert_same(bounded, whole, golden_table(chunks, k, canonical))
+
+
+@pytest.mark.parametrize("k,canonical", [(15, False), (31, True)])
+def test_finalize_with_live_bound_on_a_jax_carried_table(rng, k, canonical):
+    """consolidate2's prefix may hold two rows of one key among its live
+    rows: the bound still covers them, and sort_reduce folds them."""
+    L = k + 15
+    chunks = [random_reads(rng, 10, L, invalid_frac=0.03) for _ in range(3)]
+    P = L - k + 1
+    jax_t = jax_rounds(chunks, k, canonical, cp=8 * 10 * P, cr=2 * 10 * P, consolidate_every=2)
+    jax_t, live, lost = jt2.consolidate2(jax_t)
+    assert int(lost) == 0 and int(jax_t.raw_off) == 0
+    port = t2.table_from_numpy(np.asarray(jax_t.prefix_lanes), np.asarray(jax_t.prefix_counts),
+                               np.asarray(jax_t.raw_lanes), 0, int(jax_t.allt), CPU)
+    assert_same(t2.finalize_host(port, k, int(live)), t2.finalize_host(port, k),
+                golden_table(chunks, k, canonical))
+
+
+def test_engine_finalize_sorts_only_the_live_rows(tmp_path, rng, monkeypatch):
+    from kmer_counter_tpu.config import Options
+    from kmer_counter_tpu_torch.engine import CountEngine
+
+    from tests.test_ingest import random_seqs, write_fastq
+
+    (tmp_path / "in").mkdir()
+    write_fastq(tmp_path / "in" / "a.fastq", random_seqs(rng, 40, 60))
+    sizes = _sorted_sizes(monkeypatch)
+    opts = Options(kmer_length=21, input_dir=str(tmp_path / "in"), output_file=str(tmp_path / "o.bin"),
+                   verbose=0, reads_per_chunk=4, table_slots=64, table_impl="two")
+    stats = CountEngine(opts, device=CPU).run()
+    assert sizes == [stats.distinct_kmers]  # the one sort of the run: finalize's
