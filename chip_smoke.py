@@ -20,21 +20,34 @@ and prints no result):
   4. main_one — the same count with tableImpl=one: every consolidation is a
                 sort_reduce through the sort kernel; its launch count and
                 shapes; the dump is byte-identical to the same NumPy count
-  5. kernel   — each kernel against its plain torch version on the card:
-                K1 bit-exact, and the sort with bit-exact keys and the same
-                payloads under each key, at NL = 1, 2, 4, 7 and about 8M and
-                32M rows, at the edge cases of tests/test_torch_cuda.py and
-                at each launch shape of phases 3 and 4, on operands shaped
-                as that path gives them (the sort with sort_reduce's outputs
-                equal too); CUDA-event times of both, per path
-  6. mid_one  — a one-level run at k=55 forward (4 key lanes): 100k reads x
+  5. main_variants — the two-level count three more times, with
+                table2.consolidate3 bound to each split variant (its
+                keywords): each consolidation runs the variant's merge
+                kernel (K3 merge_sorted_runs_fold_bitonic, K4
+                merge_sorted_runs_fold or K5 merge_sorted_runs) and the
+                compaction K2 (compact_live), and K1 never; launches (the
+                merge and K2 at least twice each, K1 none), launch shapes,
+                peak device memory; each dump byte-identical to the NumPy
+                count
+  6. kernel   — each kernel against its plain torch version on the card:
+                K1, K2, K3 and K4 bit-exact, and the sort and K5 with
+                bit-exact keys and the same payloads under each key, at
+                NL = 1, 2, 4, 7 and about 8M rows (K1 and the sort also
+                32M), at the edge cases of tests/test_torch_cuda.py and at
+                each launch shape of phases 3-5, on operands shaped as that
+                path gives them (the sort with sort_reduce's outputs equal
+                too); CUDA-event times of kernel, plain version and, where
+                one PyTorch call computes the same function, that call;
+                the least time the card could take (the bound) per shape
+  7. mid_one  — a one-level run at k=55 forward (4 key lanes): 100k reads x
                 150 bp, several consolidations; byte-identical to NumPy
-  7. small    — CLI runs at k=15, 16 (all-T reads), 55 and 101 (canonical)
-                with each table and a small tableSlots that forces growth;
+  8. small    — CLI runs at k=15, 16 (all-T reads), 55 and 101 (canonical)
+                with each table, and with the two-level table under each
+                split variant, and a small tableSlots that forces growth;
                 each dump byte-identical to the NumPy count
 
 The last three lines: the card's name and power limit, one JSON object
-describing each kernel (its launches and times summed over phases 3-4,
+describing each kernel (its launches and times summed over phases 3-5,
 and under "paths" each phase's own), and {"ok": true, "device": {...}}.
 
 With --profile, phases 1 and 2 are followed by, for each table: three
@@ -58,23 +71,37 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
-K1 = dict(
-    name="merge_fold_compact",
-    route="cuda",
-    source="kmer_counter_tpu_torch/csrc/merge_fold_compact.cu",
-    replaces="kmer_counter_tpu/ops/pallas_sort.py:781",
-)
+PALLAS = "kmer_counter_tpu/ops/pallas_sort.py"
+MFC_CU = "kmer_counter_tpu_torch/csrc/merge_fold_compact.cu"
+K1 = dict(name="merge_fold_compact", route="cuda", source=MFC_CU, replaces=f"{PALLAS}:781")
 # K6 (leaf_sort, :204) + K7 (_merge_pass, :313) as one sort.
 SORT = dict(
     name="lane_sort",
     route="cuda",
     source="kmer_counter_tpu_torch/csrc/lane_sort.cu",
-    replaces="kmer_counter_tpu/ops/pallas_sort.py:204",
-    replaces_also="kmer_counter_tpu/ops/pallas_sort.py:313",
+    replaces=f"{PALLAS}:204",
+    replaces_also=f"{PALLAS}:313",
 )
+K2 = dict(name="compact_live", route="cuda", source="kmer_counter_tpu_torch/csrc/compact_live.cu",
+          replaces=f"{PALLAS}:1573")
+# K3, K4, K5: variants of K1's kernel template; named as in ops.merge_runs.
+MERGES = {
+    "merge_sorted_runs_fold_bitonic": dict(name="merge_sorted_runs_fold_bitonic", route="cuda",
+                                           source=MFC_CU, replaces=f"{PALLAS}:1271"),
+    "merge_sorted_runs_fold": dict(name="merge_sorted_runs_fold", route="cuda", source=MFC_CU,
+                                   replaces=f"{PALLAS}:1105"),
+    "merge_sorted_runs": dict(name="merge_sorted_runs", route="cuda", source=MFC_CU,
+                              replaces=f"{PALLAS}:1804"),
+}
 MAIN_K, MAIN_L, MAIN_READS, MAIN_FILES, MAIN_GENOME = 31, 100, 2_000_000, 4, 4_600_000
 MEMORY_LIMIT = 8_000_000_000
-KERNEL_ROWS = (8 << 20, 32 << 20)  # the kernel phase's random operand sizes
+KERNEL_ROWS = (8 << 20, 32 << 20)  # the kernel phase's random operand sizes (K1, the sort)
+NEW_KERNEL_ROWS = 8 << 20  # the same for K2-K5
+# The card's peaks for the bound (the least time the card could take): the
+# H100 SXM data sheet's device-memory rate, and its float32 rate outside the
+# tensor cores taken for 32-bit integer operations (both at a 700 W limit).
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12
 
 
 def log(obj):
@@ -82,7 +109,7 @@ def log(obj):
 
 
 def require_checkout():
-    for d in ("kmer_counter_tpu_torch", "kmer_counter_tpu", "tests"):
+    for d in ("kmer_counter_tpu_torch", "tests"):
         if not os.path.isdir(os.path.join(HERE, d)):
             raise SystemExit(f"chip_smoke.py needs the repository beside it: {d}/ is missing")
     sys.path.insert(0, HERE)
@@ -232,11 +259,95 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def in_turns(kernel, plain, kernel_reps=5, plain_reps=3):
-    """(kernel ms, plain ms), timed in turns: kernel, plain, plain, kernel."""
-    k1, p1, p2, k2 = (cuda_ms(kernel, kernel_reps), cuda_ms(plain, plain_reps),
-                      cuda_ms(plain, plain_reps), cuda_ms(kernel, kernel_reps))
-    return (k1 + k2) / 2, (p1 + p2) / 2
+def in_turns(kernel, plain, library=None, kernel_reps=5, plain_reps=3):
+    """(kernel ms, plain ms, library ms or None), timed in turns: kernel,
+    plain, library, library, plain, kernel."""
+    k1, p1 = cuda_ms(kernel, kernel_reps), cuda_ms(plain, plain_reps)
+    l1 = l2 = None
+    if library is not None:
+        l1, l2 = cuda_ms(library, kernel_reps), cuda_ms(library, kernel_reps)
+    p2, k2 = cuda_ms(plain, plain_reps), cuda_ms(kernel, kernel_reps)
+    return (k1 + k2) / 2, (p1 + p2) / 2, None if library is None else (l1 + l2) / 2
+
+
+def bound(nbytes, ops):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over the
+    card's memory rate and the operations over its 32-bit integer rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def merge_bound(NL, na, nb):
+    """A merge of two runs (K1, K3, K4, K5): each row of A and B read once,
+    each output row written once; at most 16 integer operations a merged
+    row and lane (compares in the split, the merge, run heads and ends)."""
+    n = na + nb
+    return bound(2 * n * (NL + 1) * 4, 16 * n * (NL + 1))
+
+
+def timing(err, ms, plain_ms, bound_ms_by, library_ms=None):
+    """One shape's numbers; bound_ms_by is bound()'s pair."""
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms_by[0],
+            "bound_by": bound_ms_by[1], "library_ms": library_ms}
+
+
+def packed_key(keys):
+    """The one int64 sort key of [NL <= 2, n] int32 lanes (unsigned order)."""
+    from kmer_counter_tpu_torch.ops.sortcount import _digits
+
+    return _digits(keys)[0]
+
+
+def library_sort(keys, payload):
+    """The library yardstick for a sort or merge at NL <= 2: torch.sort of
+    the packed int64 key (stable=False), then a gather of keys and payload;
+    the key is packed beforehand, outside the timed call."""
+    import torch
+
+    packed = packed_key(keys)
+
+    def call():
+        idx = torch.sort(packed, stable=False).indices
+        return keys[:, idx], payload[idx]
+
+    return call
+
+
+def _ri(gen, device):
+    import torch
+
+    def ri(lo, hi, size):
+        return torch.randint(lo, hi, size, generator=gen, device=device)
+
+    return ri
+
+
+def random_prefix(keys, na, gen, device):
+    """A prefix of na rows from a key pool [NL, pool]: 80% live, sorted,
+    counts 1..5 (2% near 2^32), then sentinel rows with count 0."""
+    import torch
+
+    from kmer_counter_tpu_torch.ops.sortcount import lex_argsort
+
+    ri = _ri(gen, device)
+    NL, pool = keys.shape
+    n_live_a = int(na * 0.8)
+    a = keys[:, ri(0, pool, (n_live_a,))]
+    a = a[:, lex_argsort(a)]
+    ac = ri(1, 6, (n_live_a,)).to(torch.int32)
+    big = torch.rand(n_live_a, generator=gen, device=device) < 0.02
+    ac = torch.where(big, ri(-(2**31), 0, (n_live_a,)).to(torch.int32), ac)
+    a = torch.cat([a, a.new_full((NL, na - n_live_a), -1)], 1)
+    ac = torch.cat([ac, ac.new_zeros(na - n_live_a)])
+    return [*a.unbind(0), ac]
+
+
+def key_pool(NL, n, gen, device):
+    import torch
+
+    keys = _ri(gen, device)(-(2**31), 2**31, (NL, max(n // 3, 4))).to(torch.int32)
+    keys[:, 0] = 0
+    return keys
 
 
 def random_k1_operands(NL, na, nb, gen, device):
@@ -249,21 +360,9 @@ def random_k1_operands(NL, na, nb, gen, device):
 
     from kmer_counter_tpu_torch.ops.sortcount import lex_argsort
 
-    def ri(lo, hi, size):
-        return torch.randint(lo, hi, size, generator=gen, device=device)
-
-    pool = max((na + nb) // 3, 4)
-    keys = ri(-(2**31), 2**31, (NL, pool)).to(torch.int32)
-    keys[:, 0] = 0
-    n_live_a = int(na * 0.8)
-    a = keys[:, ri(0, pool, (n_live_a,))]
-    a = a[:, lex_argsort(a)]
-    ac = ri(1, 6, (n_live_a,)).to(torch.int32)
-    big = torch.rand(n_live_a, generator=gen, device=device) < 0.02
-    ac = torch.where(big, ri(-(2**31), 0, (n_live_a,)).to(torch.int32), ac)
-    a = torch.cat([a, a.new_full((NL, na - n_live_a), -1)], 1)
-    ac = torch.cat([ac, ac.new_zeros(na - n_live_a)])
-    b = keys[:, ri(0, pool, (nb,))]
+    keys = key_pool(NL, na + nb, gen, device)
+    a_ops = random_prefix(keys, na, gen, device)
+    b = keys[:, _ri(gen, device)(0, keys.shape[1], (nb,))]
     b[:, : int(nb * 0.05)] = -1
     b = b[:, lex_argsort(b)]
     n_dead = int(nb * 0.1)
@@ -271,12 +370,37 @@ def random_k1_operands(NL, na, nb, gen, device):
     live = torch.ones(nb, dtype=torch.int32, device=device)
     live[:n_dead] = 0
     b, live = b.flip(1).contiguous(), live.flip(0).contiguous()
-    return [*a.unbind(0), ac], [*b.unbind(0), live]
+    return a_ops, [*b.unbind(0), live]
+
+
+def random_merge_operands(kernel, NL, na, nb, gen, device):
+    """The operands of a split consolidation's merge kernel, made on the
+    card as the two-level table gives them: A = a prefix (random_prefix);
+    B = a raw region of nb rows drawn with repeats from the same key pool
+    (90% of it live, 5% of that masked windows), sorted by the table's own
+    helper for that kernel (descending with liveness, ascending with
+    liveness, ascending with run-head multiplicities)."""
+    import torch
+
+    from kmer_counter_tpu_torch.ops import table2 as t2
+
+    keys = key_pool(NL, na + nb, gen, device)
+    a_ops = random_prefix(keys, na, gen, device)
+    raw = keys[:, _ri(gen, device)(0, keys.shape[1], (nb,))]
+    raw[:, : int(nb * 0.05)] = -1
+    raw_off = int(nb * 0.9)
+    raw[:, raw_off:] = 0
+    sort = {"merge_sorted_runs_fold_bitonic": t2._sort_raw_desc,
+            "merge_sorted_runs_fold": t2._sort_raw_ones, "merge_sorted_runs": t2._sort_raw}[kernel]
+    s, counts = sort(raw.contiguous(), raw_off)
+    del raw
+    torch.cuda.empty_cache()
+    return a_ops, [*s.unbind(0), counts]
 
 
 def compare_k1(a_ops, b_ops, NL, time_it):
     """Kernel vs plain on the same operands: bit-exact or raise.  Returns
-    (max_abs_err, kernel ms, plain ms) — times None unless time_it."""
+    the timing dict (times None unless time_it)."""
     import torch
 
     from kmer_counter_tpu_torch.ops import merge_fold_compact as mfc
@@ -291,22 +415,21 @@ def compare_k1(a_ops, b_ops, NL, time_it):
             f"K1 kernel disagrees with plain: NL={NL} na={a_ops[0].numel()} "
             f"nb={b_ops[0].numel()} live {int(live)} vs {int(want_live)}, max_abs_err {err}"
         )
+    del out, want
+    cost = merge_bound(NL, a_ops[0].numel(), b_ops[0].numel())
     if not time_it:
-        return err, None, None
-    ms, plain_ms = in_turns(lambda: mfc.merge_fold_compact(a_ops, b_ops, NL),
-                            lambda: mfc.merge_fold_compact_reference(a_ops, b_ops, NL))
-    return err, ms, plain_ms
+        return timing(err, None, None, cost)
+    ms, plain_ms, _ = in_turns(lambda: mfc.merge_fold_compact(a_ops, b_ops, NL),
+                               lambda: mfc.merge_fold_compact_reference(a_ops, b_ops, NL))
+    return timing(err, ms, plain_ms, cost)
 
 
-def phase_kernel(device, shapes_by_path):
+def phase_kernel(device, cases, shapes_by_path):
     """K1 kernel vs plain: random operands per NL at ~8M and ~32M rows, the
     edge cases, and each (NL, na, nb) that a main path launched.  Returns
     per_path_totals's dict."""
     import numpy as np
     import torch
-
-    cases = load_test_cases()
-    EDGE_CASES, operands = cases.EDGE_CASES, cases.operands
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     max_err = 0
@@ -314,49 +437,57 @@ def phase_kernel(device, shapes_by_path):
         for n in KERNEL_ROWS:
             na = n // 8
             a_ops, b_ops = random_k1_operands(NL, na, n - na, gen, device)
-            err, ms, plain_ms = compare_k1(a_ops, b_ops, NL, time_it=True)
-            max_err = max(max_err, err)
+            t = compare_k1(a_ops, b_ops, NL, time_it=True)
+            max_err = max(max_err, t["max_abs_err"])
             log({"phase": "kernel", "kernel": K1["name"], "NL": NL, "na": na, "nb": n - na,
-                 "bit_exact": True, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                 "bit_exact": True, **t})
             del a_ops, b_ops
-    for name, build in sorted(EDGE_CASES.items()):
-        a_ops, b_ops, NL = operands(build(np.random.default_rng(SEED)), device)
-        err, _, _ = compare_k1(a_ops, b_ops, NL, time_it=False)
-        max_err = max(max_err, err)
+    for name, build in sorted(cases.EDGE_CASES.items()):
+        a_ops, b_ops, NL = cases.operands(build(np.random.default_rng(SEED)), device)
+        max_err = max(max_err, compare_k1(a_ops, b_ops, NL, time_it=False)["max_abs_err"])
         log({"phase": "kernel", "kernel": K1["name"], "edge_case": name, "bit_exact": True})
 
     def at_shape(path, shape):
         NL, na, nb = shape
         a_ops, b_ops = random_k1_operands(NL, na, nb, gen, device)
-        err, ms, plain_ms = compare_k1(a_ops, b_ops, NL, time_it=True)
+        t = compare_k1(a_ops, b_ops, NL, time_it=True)
         log({"phase": "kernel", "kernel": K1["name"], "path": path, "main_path_launch_shape": True,
-             "NL": NL, "na": na, "nb": nb, "bit_exact": True, "max_abs_err": err,
-             "ms": ms, "plain_ms": plain_ms})
-        return err, ms, plain_ms
+             "NL": NL, "na": na, "nb": nb, "bit_exact": True, **t})
+        return t
 
     return per_path_totals(shapes_by_path, at_shape, max_err)
 
 
 def per_path_totals(shapes_by_path, at_shape, max_err):
-    """Runs at_shape(path, shape) -> (max_abs_err, ms, plain_ms) once for
-    each distinct launch shape of each path.  Returns the largest error
-    (with max_err), and ms / plain_ms as totals over every launch (each
-    shape's times times its launch count), over all paths and under
-    "paths" for each."""
+    """Runs at_shape(path, shape) -> timing dict once for each distinct
+    launch shape (a shape that an earlier path launched too is not timed
+    again).  Returns the largest error (with max_err), and ms, plain_ms,
+    bound_ms and library_ms as totals over every launch (each shape's times
+    times its launch count; library_ms None unless every shape has one),
+    over all paths and under "paths" for each; bound_by says which bound
+    the largest share of bound_ms came from."""
     import torch
 
-    paths = {}
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+    done, paths, by = {}, {}, Counter()
     for path, shapes in shapes_by_path.items():
-        ms = plain_ms = 0.0
+        tot = dict.fromkeys(keys, 0.0)
         for shape, count in sorted(Counter(shapes).items()):
-            err, t, plain_t = at_shape(path, shape)
-            torch.cuda.empty_cache()
-            max_err = max(max_err, err)
-            ms += count * t
-            plain_ms += count * plain_t
-        paths[path] = {"ms": ms, "plain_ms": plain_ms}
-    return {"max_abs_err": max_err, "ms": sum(p["ms"] for p in paths.values()),
-            "plain_ms": sum(p["plain_ms"] for p in paths.values()), "paths": paths}
+            if shape not in done:
+                done[shape] = at_shape(path, shape)
+                torch.cuda.empty_cache()
+            t = done[shape]
+            max_err = max(max_err, t["max_abs_err"])
+            by[t["bound_by"]] += count * t["bound_ms"]
+            for key in keys:
+                tot[key] = None if tot[key] is None or t[key] is None else tot[key] + count * t[key]
+        paths[path] = tot
+    out = {"max_abs_err": max_err, "paths": paths,
+           "bound_by": by.most_common(1)[0][0] if by else "bytes"}
+    for key in keys:
+        vals = [p[key] for p in paths.values()]
+        out[key] = None if None in vals else sum(vals)
+    return out
 
 
 def random_sort_operands(NL, n, gen, device):
@@ -393,9 +524,10 @@ def finalize_sort_operands(NL, n, gen, device):
 
 
 # The sort's operands at each main path's launch shapes, as that path gives
-# them: the two-level run sorts only at finalize, the one-level run sorts
+# them: the two-level runs sort only at finalize, the one-level run sorts
 # its whole table at every consolidation.
-SORT_OPERANDS = {"main": finalize_sort_operands, "main_one": random_sort_operands}
+def sort_operands_for(path):
+    return random_sort_operands if path == "main_one" else finalize_sort_operands
 
 
 def compare_sort(cases, keys, payload, time_it, reduce_too=False):
@@ -403,9 +535,8 @@ def compare_sort(cases, keys, payload, time_it, reduce_too=False):
     bit-exact and the same payloads under each key (``cases``: the loaded
     tests/test_torch_cuda.py), or raise; with
     reduce_too, sort_reduce (through the kernel) against sort_reduce's
-    second half applied to the plain sort, equal or raise.  Returns
-    (max_abs_err of the keys, kernel ms, plain ms) — times None unless
-    time_it."""
+    second half applied to the plain sort, equal or raise.  Returns the
+    timing dict (times None unless time_it; the library call at NL <= 2)."""
     import torch
 
     from kmer_counter_tpu_torch.ops import lane_sort as ls
@@ -428,73 +559,248 @@ def compare_sort(cases, keys, payload, time_it, reduce_too=False):
                 u_lanes[:, :u_n], w_lanes[:, :w_n]):
             raise AssertionError(f"sort_reduce through the kernel disagrees with plain: NL={NL} n={n}")
         del u_lanes, u_counts, w_lanes, w_counts, eff
+    levels = max((n - 1).bit_length(), 1)
+    cost = bound(2 * n * (NL + 1) * 4, 2 * n * NL * levels)  # bytes; compares per lane and merge level
     if not time_it:
-        return err, None, None
-    ms, plain_ms = in_turns(lambda: ls.sort_ops(keys, payload),
-                            lambda: ls.sort_ops_reference(keys, payload))
-    return err, ms, plain_ms
+        return timing(err, None, None, cost)
+    library = library_sort(keys, payload) if NL <= 2 else None
+    ms, plain_ms, library_ms = in_turns(lambda: ls.sort_ops(keys, payload),
+                                        lambda: ls.sort_ops_reference(keys, payload), library)
+    return timing(err, ms, plain_ms, cost, library_ms)
 
 
-def phase_sort_kernel(device, shapes_by_path):
+def phase_sort_kernel(device, cases, shapes_by_path):
     """The sort kernel vs plain: random operands per NL at ~8M and ~32M
     rows, the edge cases, and each (NL, n) that a main path launched, on
-    operands shaped as that path gives them (SORT_OPERANDS).  Returns
+    operands shaped as that path gives them (sort_operands_for).  Returns
     per_path_totals's dict."""
     import numpy as np
     import torch
 
     from kmer_counter_tpu_torch.ops.u32 import from_numpy
 
-    cases = load_test_cases()
     gen = torch.Generator(device=device).manual_seed(SEED)
     max_err = 0
     for NL in (1, 2, 4, 7):
         for n in KERNEL_ROWS:
             keys, counts = random_sort_operands(NL, n, gen, device)
-            err, ms, plain_ms = compare_sort(cases, keys, counts, time_it=True)
-            max_err = max(max_err, err)
+            t = compare_sort(cases, keys, counts, time_it=True)
+            max_err = max(max_err, t["max_abs_err"])
             log({"phase": "kernel", "kernel": SORT["name"], "NL": NL, "n": n, "keys_bit_exact": True,
-                 "payloads_conserved": True, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                 "payloads_conserved": True, **t})
             del keys, counts
     for name, build in sorted(cases.SORT_CASES.items()):
         keys_np, payload_np = build(np.random.default_rng(SEED))
-        err, _, _ = compare_sort(cases, from_numpy(keys_np, device), from_numpy(payload_np, device),
-                                 time_it=False)
-        max_err = max(max_err, err)
+        t = compare_sort(cases, from_numpy(keys_np, device), from_numpy(payload_np, device),
+                         time_it=False)
+        max_err = max(max_err, t["max_abs_err"])
         log({"phase": "kernel", "kernel": SORT["name"], "edge_case": name, "keys_bit_exact": True,
              "payloads_conserved": True})
 
     def at_shape(path, shape):
         NL, n = shape
-        keys, counts = SORT_OPERANDS[path](NL, n, gen, device)
-        err, ms, plain_ms = compare_sort(cases, keys, counts, time_it=True, reduce_too=True)
+        keys, counts = sort_operands_for(path)(NL, n, gen, device)
+        t = compare_sort(cases, keys, counts, time_it=True, reduce_too=True)
         log({"phase": "kernel", "kernel": SORT["name"], "path": path, "main_path_launch_shape": True,
              "NL": NL, "n": n, "keys_bit_exact": True, "payloads_conserved": True,
-             "sort_reduce_equal": True, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
-        return err, ms, plain_ms
+             "sort_reduce_equal": True, **t})
+        return t
+
+    return per_path_totals(shapes_by_path, at_shape, max_err)
+
+
+def compare_merge(cases, kernel, a_ops, b_ops, NL, time_it):
+    """A merge kernel of ops.merge_runs vs its plain version: bit-exact for
+    the folding merges, keys bit-exact and the same payloads under each key
+    for merge_sorted_runs, or raise.  Returns (timing dict, bit_exact)."""
+    import torch
+
+    from kmer_counter_tpu_torch.ops import merge_runs as mr
+    from kmer_counter_tpu_torch.ops.u32 import widen
+
+    fn, ref = getattr(mr, kernel), getattr(mr, kernel + "_reference")
+    got, want = fn(a_ops, b_ops, NL), ref(a_ops, b_ops, NL)
+    torch.cuda.synchronize()
+    err = int((widen(got[:NL]) - widen(want[:NL])).abs().max()) if got.numel() else 0
+    if not cases.merge_outputs_agree(kernel, got, want):
+        raise AssertionError(f"{kernel} kernel disagrees with plain: NL={NL} na={a_ops[0].numel()} "
+                             f"nb={b_ops[0].numel()}, key max_abs_err {err}")
+    bit_exact = torch.equal(got, want)
+    del got, want
+    cost = merge_bound(NL, a_ops[0].numel(), b_ops[0].numel())
+    if not time_it:
+        return timing(err, None, None, cost), bit_exact
+    library = None
+    if kernel == "merge_sorted_runs" and NL <= 2:
+        library = library_sort(torch.cat([torch.stack(a_ops[:NL]), torch.stack(b_ops[:NL])], 1),
+                               torch.cat([a_ops[NL], b_ops[NL]]))
+    ms, plain_ms, library_ms = in_turns(lambda: fn(a_ops, b_ops, NL), lambda: ref(a_ops, b_ops, NL),
+                                        library)
+    return timing(err, ms, plain_ms, cost, library_ms), bit_exact
+
+
+def phase_merge_kernels(device, cases, shapes_by_kernel):
+    """K3, K4, K5 vs plain: random operands per NL at ~8M rows, the edge
+    cases, and each (NL, na, nb) that a main path launched, on operands
+    shaped as the table gives them (random_merge_operands).  Returns
+    {kernel: per_path_totals's dict}."""
+    import numpy as np
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    results = {}
+    for kernel, shapes_by_path in shapes_by_kernel.items():
+        max_err = 0
+        for NL in (1, 2, 4, 7):
+            n = NEW_KERNEL_ROWS
+            a_ops, b_ops = random_merge_operands(kernel, NL, n // 8, n - n // 8, gen, device)
+            t, exact = compare_merge(cases, kernel, a_ops, b_ops, NL, time_it=True)
+            max_err = max(max_err, t["max_abs_err"])
+            log({"phase": "kernel", "kernel": kernel, "NL": NL, "na": n // 8, "nb": n - n // 8,
+                 "agrees": True, "bit_exact": exact, **t})
+            del a_ops, b_ops
+        for name, build in sorted(cases.EDGE_CASES.items()):
+            case = cases.merge_case_layout(kernel, build(np.random.default_rng(SEED)))
+            a_ops, b_ops, NL = cases.operands(case, device)
+            t, exact = compare_merge(cases, kernel, a_ops, b_ops, NL, time_it=False)
+            max_err = max(max_err, t["max_abs_err"])
+            log({"phase": "kernel", "kernel": kernel, "edge_case": name, "agrees": True,
+                 "bit_exact": exact})
+
+        def at_shape(path, shape, kernel=kernel):
+            NL, na, nb = shape
+            a_ops, b_ops = random_merge_operands(kernel, NL, na, nb, gen, device)
+            t, exact = compare_merge(cases, kernel, a_ops, b_ops, NL, time_it=True)
+            log({"phase": "kernel", "kernel": kernel, "path": path, "main_path_launch_shape": True,
+                 "NL": NL, "na": na, "nb": nb, "agrees": True, "bit_exact": exact, **t})
+            return t
+
+        results[kernel] = per_path_totals(shapes_by_path, at_shape, max_err)
+    return results
+
+
+def compare_k2(ops2d, live, num_keys, time_it):
+    """K2 vs plain on the rows of ops2d [n_ops, n] with the flags ``live``
+    (one of those rows, as in the table, or a separate lane): bit-exact or
+    raise.  Returns the timing dict; the library call is ops2d[:, live != 0]."""
+    import torch
+
+    from kmer_counter_tpu_torch.ops import compact_live as cl
+    from kmer_counter_tpu_torch.ops.u32 import widen
+
+    ops = list(ops2d.unbind(0))
+    got, want = cl.compact_live(ops, live, num_keys), cl.compact_live_reference(ops, live, num_keys)
+    torch.cuda.synchronize()
+    err = int((widen(got) - widen(want)).abs().max()) if got.numel() else 0
+    if not torch.equal(got, want):
+        raise AssertionError(f"K2 kernel disagrees with plain: n_ops={len(ops)} n={live.numel()}, "
+                             f"max_abs_err {err}")
+    del got, want
+    # What this data needs: the flags, the other lanes of the live rows,
+    # every output row; a few integer operations a row and lane.
+    n_ops, n = ops2d.shape
+    other = n_ops - any(v.data_ptr() == live.data_ptr() for v in ops)
+    cost = bound(4 * (n + int((live != 0).sum()) * other + n * n_ops), 4 * n * n_ops)
+    if not time_it:
+        return timing(err, None, None, cost)
+    ms, plain_ms, library_ms = in_turns(lambda: cl.compact_live(ops, live, num_keys),
+                                        lambda: cl.compact_live_reference(ops, live, num_keys),
+                                        lambda: ops2d[:, live != 0])
+    return timing(err, ms, plain_ms, cost, library_ms)
+
+
+def random_k2_operands(n_ops, n, live_rows, gen, device):
+    """K2 operands as a split consolidation gives them: n_ops - 1 key lanes
+    and a count lane, nonzero (1..5) on live_rows rows spread over the
+    table; the count lane is the flags."""
+    import torch
+
+    ops2d = torch.randint(-(2**31), 2**31, (n_ops, n), generator=gen, device=device,
+                          dtype=torch.int32)
+    ops2d[-1] = 0
+    where = torch.randperm(n, generator=gen, device=device)[:live_rows]
+    ops2d[-1, where] = torch.randint(1, 6, (live_rows,), generator=gen, device=device,
+                                     dtype=torch.int32)
+    return ops2d
+
+
+def phase_k2_kernel(device, cases, shapes_by_path):
+    """K2 vs plain: random operands per NL at ~8M rows with about a third
+    live, the edge cases (sizes around the tile, densities 0 to 1, widths 1
+    to 9, flags apart from the operands), and each (n_ops, n, live rows)
+    that a main path launched.  Returns per_path_totals's dict."""
+    import numpy as np
+    import torch
+
+    from kmer_counter_tpu_torch.ops.u32 import from_numpy
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    max_err = 0
+    for NL in (1, 2, 4, 7):
+        n = NEW_KERNEL_ROWS
+        ops2d = random_k2_operands(NL + 1, n, n // 3, gen, device)
+        t = compare_k2(ops2d, ops2d[-1], NL, time_it=True)
+        max_err = max(max_err, t["max_abs_err"])
+        log({"phase": "kernel", "kernel": K2["name"], "n_ops": NL + 1, "n": n, "live_rows": n // 3,
+             "bit_exact": True, **t})
+        del ops2d
+    for n in (0, 1, 31, 4095, 4096, 4097, 1_000_003):
+        for density in (0.0, 0.5, 0.97, 1.0):
+            for n_ops, num_keys in ((3, 2), (1, 1), (9, 8), (3, 0)):
+                ops, live = cases.compact_case(np.random.default_rng(n), n_ops - 1, n, density)
+                ops2d = from_numpy(np.stack(ops), device)
+                for flags in (from_numpy(live, device), ops2d[-1]):
+                    max_err = max(max_err, compare_k2(ops2d, flags, num_keys, False)["max_abs_err"])
+    log({"phase": "kernel", "kernel": K2["name"], "edge_cases": "sizes x densities x widths",
+         "bit_exact": True})
+
+    def at_shape(path, shape):
+        n_ops, n, live_rows = shape
+        ops2d = random_k2_operands(n_ops, n, live_rows, gen, device)
+        t = compare_k2(ops2d, ops2d[-1], n_ops - 1, time_it=True)
+        log({"phase": "kernel", "kernel": K2["name"], "path": path, "main_path_launch_shape": True,
+             "n_ops": n_ops, "n": n, "live_rows": live_rows, "bit_exact": True, **t})
+        return t
 
     return per_path_totals(shapes_by_path, at_shape, max_err)
 
 
 class LaunchShapes:
-    """Records the shape of each call of the two kernel wrappers, as
-    (NL, na, nb) for K1 and (NL, n) for the sort; the kernel phase compares
-    and times the kernels at those shapes."""
+    """Records the shape of each call of the kernel wrappers on the table
+    paths: (NL, na, nb) for K1 and the merges, (NL, n) for the sort, and
+    (n_ops, n, live rows) for K2; the kernel phase compares and times the
+    kernels at those shapes.  ``variant``: consolidate3's keywords, bound
+    to table2.consolidate3 while the context is open."""
 
-    def __init__(self):
+    def __init__(self, variant=None):
+        import functools
+
         from kmer_counter_tpu_torch.ops import lane_sort, table2
 
-        self.k1, self.sort = [], []
-        self._patches = [(table2, "merge_fold_compact", self._k1), (lane_sort, "sort_ops", self._sort)]
-        self._reals = {name: getattr(module, name) for module, name, _ in self._patches}
+        self._table2, self._lane_sort = table2, lane_sort
+        self.shapes = {name: [] for name in (K1["name"], SORT["name"], K2["name"], *MERGES)}
+        self._patches = [(table2, "merge_fold_compact", self._merge("merge_fold_compact")),
+                         (lane_sort, "sort_ops", self._sort),
+                         (table2, "compact_live", self._k2)]
+        self._patches += [(table2, name, self._merge(name)) for name in MERGES]
+        if variant:
+            self._patches.append((table2, "consolidate3", functools.partial(table2.consolidate3, **variant)))
+        self._reals = {(m, name): getattr(m, name) for m, name, _ in self._patches}
 
-    def _k1(self, a_ops, b_ops, num_keys):
-        self.k1.append((num_keys, a_ops[0].numel(), b_ops[0].numel()))
-        return self._reals["merge_fold_compact"](a_ops, b_ops, num_keys)
+    def _merge(self, name):
+        def call(a_ops, b_ops, num_keys):
+            self.shapes[name].append((num_keys, a_ops[0].numel(), b_ops[0].numel()))
+            return self._reals[(self._table2, name)](a_ops, b_ops, num_keys)
+
+        return call
 
     def _sort(self, keys, payload):
-        self.sort.append(tuple(keys.shape))
-        return self._reals["sort_ops"](keys, payload)
+        self.shapes[SORT["name"]].append(tuple(keys.shape))
+        return self._reals[(self._lane_sort, "sort_ops")](keys, payload)
+
+    def _k2(self, operands, live, num_keys):
+        self.shapes[K2["name"]].append((len(operands), live.numel(), int((live != 0).sum())))
+        return self._reals[(self._table2, "compact_live")](operands, live, num_keys)
 
     def __enter__(self):
         for module, name, fn in self._patches:
@@ -503,30 +809,51 @@ class LaunchShapes:
 
     def __exit__(self, *exc):
         for module, name, _ in self._patches:
-            setattr(module, name, self._reals[name])
+            setattr(module, name, self._reals[(module, name)])
 
 
-def run_main_path(device, argv, impl):
-    """One CLI run of the main count with tableImpl=impl.  The launch
+def launch_counts():
+    """Every kernel wrapper's launch count, by kernel name."""
+    from kmer_counter_tpu_torch.ops import compact_live as cl
+    from kmer_counter_tpu_torch.ops import lane_sort as ls
+    from kmer_counter_tpu_torch.ops import merge_fold_compact as mfc
+    from kmer_counter_tpu_torch.ops import merge_runs as mr
+
+    return {K1["name"]: mfc.launches, SORT["name"]: ls.launches, K2["name"]: cl.launches,
+            **{name: mr.launches[name] for name in MERGES}}
+
+
+def reset_launch_counts():
+    from kmer_counter_tpu_torch.ops import compact_live as cl
+    from kmer_counter_tpu_torch.ops import lane_sort as ls
+    from kmer_counter_tpu_torch.ops import merge_fold_compact as mfc
+    from kmer_counter_tpu_torch.ops import merge_runs as mr
+
+    mfc.launches = ls.launches = cl.launches = 0
+    for name in mr.launches:
+        mr.launches[name] = 0
+
+
+def run_main_path(device, argv, impl, variant=None):
+    """One CLI run of the main count with tableImpl=impl (and, for the
+    two-level table, consolidate3's keywords ``variant``).  The launch
     counts are set to 0 just before it and read just after.  Returns
     (wall s, peak device bytes, {kernel: launches}, LaunchShapes)."""
     import torch
 
     from kmer_counter_tpu_torch.__main__ import main
-    from kmer_counter_tpu_torch.ops import lane_sort as ls
-    from kmer_counter_tpu_torch.ops import merge_fold_compact as mfc
 
-    with LaunchShapes() as shapes:
+    with LaunchShapes(variant) as shapes:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
-        mfc.launches = ls.launches = 0
+        reset_launch_counts()
         t0 = time.perf_counter()
         rc = main(argv + [f"tableImpl={impl}"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {K1["name"]: mfc.launches, SORT["name"]: ls.launches}
+        launches = launch_counts()
     if rc != 0:
-        raise RuntimeError(f"main() returned {rc} (tableImpl={impl})")
+        raise RuntimeError(f"main() returned {rc} (tableImpl={impl}, variant {variant})")
     return wall, torch.cuda.max_memory_allocated(device), launches, shapes
 
 
@@ -536,10 +863,11 @@ def check_dump(path, want: bytes, what: str):
             raise AssertionError(f"{what}: the dump differs from the independent NumPy count")
 
 
-def phase_main(device, tmp):
-    """Phases 3 and 4: the main count with each table.  Returns
-    {phase: ({kernel: launches}, LaunchShapes)} for "main" (two-level) and
-    "main_one"."""
+def phase_main(device, tmp, cases):
+    """Phases 3-5: the main count with each table, then with the two-level
+    table under each split consolidation variant.  Returns {path: ({kernel:
+    launches}, LaunchShapes)} for "main" (two-level), "main_one" and
+    "main_<variant>" for each split variant."""
     import numpy as np
 
     t0 = time.perf_counter()
@@ -549,23 +877,33 @@ def phase_main(device, tmp):
     out = argv[-1].split("=", 1)[1]
     runs = {}
     want = None
-    for phase, impl, need in (("main", "two", {K1["name"]: 2, SORT["name"]: 1}),
-                              ("main_one", "one", {SORT["name"]: 2})):
-        wall, peak, launches, shapes = run_main_path(device, argv, impl)
-        for name, least in need.items():
-            if launches[name] < least:
-                raise AssertionError(f"{phase}: {name} launched {launches[name]} times (want >= {least})")
+    plan = [("main", "main", "two", None, {K1["name"]: (2, None), SORT["name"]: (1, None)}),
+            ("main_one", "main_one", "one", None, {SORT["name"]: (2, None)})]
+    for variant in cases.SPLIT_VARIANTS:
+        need = {cases.VARIANT_MERGE[variant]: (2, None), K2["name"]: (2, None), K1["name"]: (0, 0)}
+        plan.append((f"main_{variant}", "main_variants", "two", variant, need))
+    for path, phase, impl, variant, need in plan:
+        kw = cases.CONSOLIDATE_VARIANTS[variant] if variant else None
+        wall, peak, launches, shapes = run_main_path(device, argv, impl, kw)
+        for name, (least, most) in need.items():
+            if launches[name] < least or (most is not None and launches[name] > most):
+                raise AssertionError(f"{path}: {name} launched {launches[name]} times "
+                                     f"(want >= {least}{'' if most is None else f' and <= {most}'})")
         t0 = time.perf_counter()
         if want is None:
             words, counts = numpy_count(reads, MAIN_K, canonical=True)
             want, total = dump_bytes(words, counts), int(counts.sum(dtype=np.int64))
-        check_dump(out, want, phase)
-        log({"phase": phase, "cmd": "python -m kmer_counter_tpu_torch " + " ".join(argv[:3])
-             + f" tableImpl={impl}", "wall_s": wall, "kmers": total, "kmers_per_s": total / wall,
-             "distinct_kmers": int(len(counts)), "launches": launches, "k1_shapes": shapes.k1,
-             "sort_shapes": shapes.sort, "peak_device_bytes": peak, "gpu_memory_limit": MEMORY_LIMIT,
-             "byte_identical_to_numpy_count": True, "verify_s": time.perf_counter() - t0})
-        runs[phase] = (launches, shapes)
+        check_dump(out, want, path)
+        entry = {"phase": phase, "cmd": "python -m kmer_counter_tpu_torch " + " ".join(argv[:3])
+                 + f" tableImpl={impl}", "wall_s": wall, "kmers": total, "kmers_per_s": total / wall,
+                 "distinct_kmers": int(len(counts)), "launches": launches,
+                 "launch_shapes": {k: v for k, v in shapes.shapes.items() if v},
+                 "peak_device_bytes": peak, "gpu_memory_limit": MEMORY_LIMIT,
+                 "byte_identical_to_numpy_count": True, "verify_s": time.perf_counter() - t0}
+        if variant:
+            entry = {"phase": phase, "variant": variant, "consolidate3": kw, **entry}
+        log(entry)
+        runs[path] = (launches, shapes)
         os.unlink(out)
     return runs
 
@@ -596,11 +934,16 @@ def phase_mid_one(device, tmp):
          "wall_s": wall, "sort_launches": launches, "byte_identical_to_numpy_count": True})
 
 
-def phase_small(tmp):
+def phase_small(tmp, cases):
+    import functools
+
     import numpy as np
 
     from kmer_counter_tpu_torch.__main__ import main
+    from kmer_counter_tpu_torch.ops import table2
 
+    real = table2.consolidate3
+    runs = [("two", None), ("one", None)] + [("two", v) for v in cases.SPLIT_VARIANTS]
     for k, canonical in ((15, False), (16, False), (55, False), (101, True)):
         rng = np.random.default_rng(k)
         reads = sample_reads(rng, 30_000, 2_000, 150, 0.005)
@@ -609,16 +952,22 @@ def phase_small(tmp):
         write_fastq(os.path.join(d, "in", "a.fastq"), reads[:1000])
         write_fastq(os.path.join(d, "in", "b.fastq"), reads[1000:])
         want = dump_bytes(*numpy_count(reads, k, canonical))
-        for impl in ("two", "one"):
-            out = os.path.join(d, f"out_{impl}.bin")
-            rc = main([f"kmerLength={k}", f"canonical={str(canonical).lower()}", f"tableImpl={impl}",
-                       f"inputFileLocation={d}/in", f"outputFile={out}", "tableSlots=40000",
-                       "verbose=0"])
+        for impl, variant in runs:
+            out = os.path.join(d, f"out_{impl}_{variant}.bin")
+            if variant:
+                table2.consolidate3 = functools.partial(real, **cases.CONSOLIDATE_VARIANTS[variant])
+            try:
+                rc = main([f"kmerLength={k}", f"canonical={str(canonical).lower()}", f"tableImpl={impl}",
+                           f"inputFileLocation={d}/in", f"outputFile={out}", "tableSlots=40000",
+                           "verbose=0"])
+            finally:
+                table2.consolidate3 = real
+            what = f"small CLI run k={k} canonical={canonical} tableImpl={impl} variant {variant}"
             if rc != 0:
-                raise AssertionError(f"small CLI run k={k} tableImpl={impl}: rc={rc}")
-            check_dump(out, want, f"small CLI run k={k} canonical={canonical} tableImpl={impl}")
+                raise AssertionError(f"{what}: rc={rc}")
+            check_dump(out, want, what)
             log({"phase": "small", "k": k, "canonical": canonical, "table_impl": impl,
-                 "byte_identical_to_numpy_count": True})
+                 "variant": variant, "byte_identical_to_numpy_count": True})
 
 
 def stage_peaks(device, run):
@@ -716,32 +1065,33 @@ def phase_profile(device, tmp, untraced=3, top=15):
 
 
 def phase_build():
-    """Builds both kernels at once (one nvcc each); logs each build.  At
-    once, the build takes as long as the slower nvcc (K1's), not the sum of
-    both: 17.25 s instead of 26.15 s on the H100 machine."""
+    """Builds every source at once (one nvcc each); logs each build.  At
+    once, the build takes as long as the slowest nvcc, not the sum."""
     from kmer_counter_tpu_torch import cuda_build
+    from kmer_counter_tpu_torch.ops import compact_live as cl
     from kmer_counter_tpu_torch.ops import lane_sort as ls
     from kmer_counter_tpu_torch.ops import merge_fold_compact as mfc
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for f in [pool.submit(mfc.tile_rows), pool.submit(ls.tile_rows, 1)]:
+    with ThreadPoolExecutor(3) as pool:
+        for f in [pool.submit(mfc.tile_rows), pool.submit(ls.tile_rows, 1), pool.submit(cl.tile_rows)]:
             f.result()
-    for name in (K1["name"], SORT["name"]):
-        log({"phase": "build", "kernel": name, "nvcc_s": cuda_build.build_seconds[name]})
-        print(cuda_build.build_log.get(name, "").strip(), flush=True)
+    for source in ("merge_fold_compact", "lane_sort", "compact_live"):
+        log({"phase": "build", "source": f"csrc/{source}.cu", "nvcc_s": cuda_build.build_seconds[source]})
+        print(cuda_build.build_log.get(source, "").strip(), flush=True)
     log({"phase": "build", "wall_s": time.perf_counter() - t0})
 
 
 def kernel_entry(spec, runs, timing):
     """The kernels line's entry of one kernel: its launches in each main
     path's run (from the launch counts) beside that path's times, and
-    their sums."""
+    their sums (ms, plain_ms, bound_ms and library_ms over every launch)."""
     paths = {path: {"launches": launches[spec["name"]], **timing["paths"][path]}
              for path, (launches, _) in runs.items()}
     return {**spec, "launches": sum(p["launches"] for p in paths.values()),
-            "max_abs_err": timing["max_abs_err"], "ms": timing["ms"],
-            "plain_ms": timing["plain_ms"], "paths": paths}
+            **{key: timing[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                            "library_ms")},
+            "paths": paths}
 
 
 def main():
@@ -755,6 +1105,7 @@ def main():
         raise SystemExit("chip_smoke.py: CUDA is not available — it runs only on an NVIDIA GPU")
     device = torch.device("cuda")
 
+    cases = load_test_cases()
     t_all = time.perf_counter()
     log({"phase": "device", "nvidia_smi": smi_line(), "torch": torch.__version__,
          "cuda": torch.version.cuda, "device_name": torch.cuda.get_device_name(0)})
@@ -765,17 +1116,24 @@ def main():
             phase_profile(device, tmp)
             print(smi_line(), flush=True)
             return
-        runs = phase_main(device, tmp)
+        runs = phase_main(device, tmp, cases)
         torch.cuda.empty_cache()
-        k1 = phase_kernel(device, {path: shapes.k1 for path, (_, shapes) in runs.items()})
-        sort = phase_sort_kernel(device, {path: shapes.sort for path, (_, shapes) in runs.items()})
+
+        def shapes_of(name):
+            return {path: shapes.shapes[name] for path, (_, shapes) in runs.items()}
+
+        timings = {K1["name"]: phase_kernel(device, cases, shapes_of(K1["name"])),
+                   SORT["name"]: phase_sort_kernel(device, cases, shapes_of(SORT["name"])),
+                   K2["name"]: phase_k2_kernel(device, cases, shapes_of(K2["name"])),
+                   **phase_merge_kernels(device, cases, {name: shapes_of(name) for name in MERGES})}
         torch.cuda.empty_cache()
         phase_mid_one(device, tmp)
-        phase_small(tmp)
+        phase_small(tmp, cases)
     log({"phase": "done", "seconds": time.perf_counter() - t_all})
 
     print(smi_line(), flush=True)
-    log({"kernels": [kernel_entry(K1, runs, k1), kernel_entry(SORT, runs, sort)]})
+    specs = [K1, SORT, K2, *MERGES.values()]
+    log({"kernels": [kernel_entry(spec, runs, timings[spec["name"]]) for spec in specs]})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})
 

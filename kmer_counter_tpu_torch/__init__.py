@@ -1,18 +1,23 @@
 """kmer_counter_tpu_torch — the PyTorch + CUDA port of kmer_counter_tpu.
 
 The JAX package (``kmer_counter_tpu``) stays the reference; this package
-runs the same single-device two-level count path on an NVIDIA GPU:
+runs the same single-device count paths on an NVIDIA GPU:
 
   __main__ (CLI)          → engine.CountEngine (chunk loop, ingest thread)
   ops.pipeline            → chunk step: ops.encode + ops.extract + raw append
   ops.table2              → two-level table: raw sort + consolidation
-  ops.merge_fold_compact  → the hand-written CUDA kernel (csrc/) that
-                            replaces pallas_sort.merge_fold_compact_bitonic
+                            (consolidate3 and its split variants)
+  ops.table               → one-level table (tableImpl=one)
   ops.sortcount           → multi-lane sort + segment reduce (finalize)
 
-NumPy-only layers are reused from the JAX package, not copied: config
-(Options), records (ABI), io.fastq / io.dump / io.printer, golden and
-utils.seqgen.  Nothing here imports jax.
+and, each replacing Pallas kernels of pallas_sort with hand-written CUDA
+(csrc/): ops.merge_fold_compact (K1, and the kernel template that
+ops.merge_runs' K3/K4/K5 share), ops.compact_live (K2) and ops.lane_sort
+(K6 + K7, the sort behind sortcount.device_sort).
+
+The NumPy-only layers it needs are its own copies of the JAX package's:
+config (Options), records (the ABI), metrics, and io.fastq / io.native /
+io.dump / io.printer.  Nothing here imports jax or the JAX package.
 
 Conventions: device key lanes and counts are ``torch.int32`` tensors that
 hold the uint32 bit pattern (torch's uint32 lacks shifts and compares on
@@ -21,8 +26,8 @@ There is no global device choice: callers pass a ``torch.device`` to
 ``engine.CountEngine`` and everything below follows its tensors.
 """
 
-from kmer_counter_tpu import records
-from kmer_counter_tpu.config import Options
+from kmer_counter_tpu_torch import records
+from kmer_counter_tpu_torch.config import Options
 
 __version__ = "0.1.0"
 

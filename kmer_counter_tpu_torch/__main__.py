@@ -16,7 +16,7 @@ import sys
 
 import torch
 
-from kmer_counter_tpu.config import Options
+from kmer_counter_tpu_torch.config import Options
 
 
 def main(argv: list[str] | None = None, device: torch.device | None = None) -> int:
@@ -25,7 +25,7 @@ def main(argv: list[str] | None = None, device: torch.device | None = None) -> i
     print("### kmer-counter-tpu ###")
 
     if len(argv) == 4 and argv[0] == "print":
-        from kmer_counter_tpu.io.printer import print_records
+        from kmer_counter_tpu_torch.io.printer import print_records
 
         _, input_path, output_path, k = argv
         try:

@@ -1,45 +1,62 @@
-// merge_fold_compact.cu — merge + run fold + stream compaction for Hopper
-// (sm_90a), the consolidation kernel of the two-level count table.
+// merge_fold_compact.cu — the merge-path kernels of the two-level count
+// table's consolidation for Hopper (sm_90a): one template over (B stored
+// descending, run fold, compaction), instantiated for four variants.
 //
-// Replaces kmer_counter_tpu/ops/pallas_sort.py
-// _merge_pair_fold_compact_bitonic_call (entry merge_fold_compact_bitonic).
+// Replaces four Pallas kernels of kmer_counter_tpu/ops/pallas_sort.py:
+//   K1 _merge_pair_fold_compact_bitonic_call (merge_fold_compact_bitonic):
+//      B descending, fold, compact
+//   K3 _merge_pair_fold_bitonic_call (merge_sorted_runs_fold_bitonic):
+//      B descending, fold
+//   K4 _merge_pair_fold_call (merge_sorted_runs_fold): B ascending, fold
+//   K5 _merge_pair_call (merge_sorted_runs): B ascending, no fold
 //
-// Computes, for A = NL key lanes + count, sorted ascending, and B = NL key
-// lanes + 0/1 liveness, stored DESCENDING: the ascending merge of A and B
-// with every run of equal keys folded onto one row that carries the run's
-// total count mod 2^32; runs whose key is the all-ones sentinel and runs
-// whose total is 0 are dropped; the live rows are packed to the front and
-// every row after them holds the sentinel key and count 0.  Liveness comes
-// from the count only, never from the key (dead B rows carry all-zero keys,
-// bit-identical to a genuine A^k record, and count 0).
+// Every variant merges A = NL key lanes + a value lane, sorted ascending,
+// with B = NL key lanes + a value lane, sorted ascending or stored
+// descending, into one ascending stream of na+nb rows; on equal keys A
+// comes first.
+//   * No fold (K5): the value lane rides along as a payload; the merged
+//     rows are written as they are.
+//   * Fold (K3, K4): every run of equal keys gets its total count mod 2^32
+//     on its LAST row and 0 on every other row; runs whose key is the
+//     all-ones sentinel get 0 throughout.  Rows stay at their merged index.
+//   * Fold + compact (K1): one row per run whose key is not the sentinel
+//     and whose total is not 0, carrying the total, packed to the front;
+//     every row after them holds the sentinel key and count 0.
+// Liveness comes from the count only, never from the key (dead B rows of
+// the descending raw sort carry all-zero keys, bit-identical to a genuine
+// A^k record, and count 0).
 //
-// What bounds it: memory.  Per merged row the kernel does a few dozen
-// integer compares but moves (NL+1)*4 bytes in and (NL+1)*4 bytes out of
-// device memory per pass, far below the card's compute-to-bandwidth ratio.
+// What bounds it: memory.  Per merged row the kernels do a few dozen
+// integer compares but move (NL+1)*4 bytes in and (NL+1)*4 bytes out of
+// device memory, far below the card's compute-to-bandwidth ratio.  The
+// least time is 2*(na+nb)*(NL+1)*4 bytes at 3.35 TB/s.
 //
-// Design.  The TPU kernel relies on its grid running tiles in order: the
+// Design.  The TPU kernels rely on their grid running tiles in order: the
 // partial sum of a run that crosses a tile edge and the output offset are
 // carried from one grid step to the next in SMEM.  CUDA blocks run in no
 // order, so the work is split into passes whose cross-tile state is a
 // handful of numbers per tile:
 //   1. splits:  one thread per tile boundary finds the merge-path split of
-//      diagonal t*TILE by binary search, reading B through the reversed
-//      index nb-1-j (as _diag_splits_pair_desc does).
-//   2. stats:   each block stages its two windows in shared memory, merges
-//      them (a merge-path search per thread, then a serial merge of ITEMS
-//      rows), finds run heads and ends against the merged stream's
-//      neighbours of the tile, and runs one block-wide segmented scan.  It
-//      writes per-tile numbers: the count sum, the partial sum of the run
-//      open at the tile's start, and the number of live rows that end here.
+//      diagonal t*TILE by binary search (for a descending B through the
+//      reversed index nb-1-j, as _diag_splits_pair_desc does).
+//   2. stats (fold variants): each block stages its two windows in shared
+//      memory, merges them (a merge-path search per thread, then a serial
+//      merge of ITEMS rows), finds run heads and ends against the merged
+//      stream's neighbours of the tile, and runs one block-wide segmented
+//      scan.  It writes per-tile numbers: the count sum, the partial sum of
+//      the run open at the tile's start, and the number of live rows that
+//      end here.
 //   3. (torch, between launches) scans of those per-tile numbers give each
-//      tile its incoming run carry and its output offset.
-//   4. compact: each block merges its tile again, completes the totals with
-//      the carry, ranks its live rows with a block scan, writes them at its
-//      offset, and fills its share of the rows past the live count.
+//      tile its incoming run carry and, for K1, its output offset.
+//   4. write:   each block merges its tile again; K5 writes it out; K3/K4
+//      complete the run totals with the carry and write every row at its
+//      merged index; K1 ranks its live rows with a block scan, writes them
+//      at its offset, and fills its share of the rows past the live count.
 // Merging twice instead of storing the merged stream reads A and B twice
-// but needs no n-row scratch: 2 reads + 1 write of (NL+1)*4 bytes per row.
-// The TPU kernel reads once; fusing the passes (decoupled look-back) is
-// later work.  Blocks mask their own ragged edge, so n needs no alignment.
+// but needs no n-row scratch: 2 reads + 1 write of (NL+1)*4 bytes per row
+// (K5: 1 read + 1 write).  The TPU kernels read once; fusing the passes
+// (decoupled look-back) is later work.  Blocks mask their own ragged edge,
+// so n needs no alignment.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -59,6 +76,20 @@ constexpr int kThreads = 256;
 constexpr int kItems = 4;
 constexpr int kTile = kThreads * kItems;  // merged rows per block
 
+// The variants (the wrapper passes one as an int).
+enum Variant {
+  kMergeFoldCompactDesc = 0,  // K1
+  kMergeFoldDesc = 1,         // K3
+  kMergeFold = 2,             // K4
+  kMerge = 3,                 // K5
+  kNumVariants
+};
+
+__host__ __device__ constexpr bool b_desc(int v) {
+  return v == kMergeFoldCompactDesc || v == kMergeFoldDesc;
+}
+__host__ __device__ constexpr bool folds(int v) { return v != kMerge; }
+
 // Rows of the per-tile stats array [kNumStats, num_tiles] (int64).
 enum Stat {
   kTileSum = 0,  // sum of the tile's counts, mod 2^32
@@ -77,12 +108,13 @@ __device__ __forceinline__ void load_a(const Ops& a, long long i, uint32_t* key)
   for (int l = 0; l < NL; ++l) key[l] = a.p[l][i];
 }
 
-// B is stored descending: ascending index j is stored row nb-1-j.
-template <int NL>
+// B's row of ascending index j: row nb-1-j when B is stored descending.
+template <int NL, bool kBDesc>
 __device__ __forceinline__ void load_b_asc(const Ops& b, long long nb, long long j,
                                            uint32_t* key) {
+  const long long row = kBDesc ? nb - 1 - j : j;
 #pragma unroll
-  for (int l = 0; l < NL; ++l) key[l] = b.p[l][nb - 1 - j];
+  for (int l = 0; l < NL; ++l) key[l] = b.p[l][row];
 }
 
 template <int NL>
@@ -121,7 +153,7 @@ __device__ __forceinline__ bool smem_is_sentinel(const TileSmem<NL>& sm, int x) 
 
 // Merge-path split of diagonal d: the number of A rows among the first d
 // merged rows (A first on equal keys).
-template <int NL>
+template <int NL, bool kBDesc>
 __global__ void splits_kernel(Ops a, Ops b, long long na, long long nb,
                               long long num_tiles, long long* splits) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -131,7 +163,7 @@ __global__ void splits_kernel(Ops a, Ops b, long long na, long long nb,
   splits[t] = merge_path_split(d, na, nb, [&](long long i, long long j) {
     uint32_t ka[NL], kb[NL];
     load_a<NL>(a, i, ka);
-    load_b_asc<NL>(b, nb, j, kb);
+    load_b_asc<NL, kBDesc>(b, nb, j, kb);
     return key_le<NL>(ka, kb);
   });
 }
@@ -139,7 +171,7 @@ __global__ void splits_kernel(Ops a, Ops b, long long na, long long nb,
 // Stages tile t's windows of A and B in shared memory and merges them in
 // place; records the merged stream's neighbours of the tile.  Returns the
 // tile's row count.
-template <int NL>
+template <int NL, bool kBDesc>
 __device__ int merge_tile(const Ops& a, const Ops& b, long long na, long long nb,
                           const long long* splits, long long t, TileSmem<NL>& sm) {
   const long long n = na + nb;
@@ -151,16 +183,23 @@ __device__ int merge_tile(const Ops& a, const Ops& b, long long na, long long nb
   const int lb = (int)(j1 - j0);
   const int len = la + lb;
 
-  // A's window ascending at [0, la); B's window (descending rows
-  // [nb-j1, nb-j0), read forward) reversed into [la, len).
+  // A's window ascending at [0, la); B's window ascending at [la, len).  A
+  // descending B's window (rows [nb-j1, nb-j0), read forward) is reversed.
   for (int r = threadIdx.x; r < la; r += kThreads) {
 #pragma unroll
     for (int l = 0; l <= NL; ++l) sm.ops[l][r] = a.p[l][i0 + r];
   }
-  const long long b_row0 = nb - j1;
-  for (int r = threadIdx.x; r < lb; r += kThreads) {
+  if (kBDesc) {
+    const long long b_row0 = nb - j1;
+    for (int r = threadIdx.x; r < lb; r += kThreads) {
 #pragma unroll
-    for (int l = 0; l <= NL; ++l) sm.ops[l][len - 1 - r] = b.p[l][b_row0 + r];
+      for (int l = 0; l <= NL; ++l) sm.ops[l][len - 1 - r] = b.p[l][b_row0 + r];
+    }
+  } else {
+    for (int r = threadIdx.x; r < lb; r += kThreads) {
+#pragma unroll
+      for (int l = 0; l <= NL; ++l) sm.ops[l][la + r] = b.p[l][j0 + r];
+    }
   }
   if (threadIdx.x == 0) {
     // The row before the tile is the larger of the last consumed A and B
@@ -170,7 +209,7 @@ __device__ int merge_tile(const Ops& a, const Ops& b, long long na, long long nb
     if (d0 > 0) {
       const bool use_a = i0 > 0, use_b = j0 > 0;
       if (use_a) load_a<NL>(a, i0 - 1, ka);
-      if (use_b) load_b_asc<NL>(b, nb, j0 - 1, kb);
+      if (use_b) load_b_asc<NL, kBDesc>(b, nb, j0 - 1, kb);
       const bool pick_a = use_a && (!use_b || key_le<NL>(kb, ka));
 #pragma unroll
       for (int l = 0; l < NL; ++l) sm.prev[l] = pick_a ? ka[l] : kb[l];
@@ -179,7 +218,7 @@ __device__ int merge_tile(const Ops& a, const Ops& b, long long na, long long nb
     if (d1 < n) {
       const bool use_a = i1 < na, use_b = j1 < nb;
       if (use_a) load_a<NL>(a, i1, ka);
-      if (use_b) load_b_asc<NL>(b, nb, j1, kb);
+      if (use_b) load_b_asc<NL, kBDesc>(b, nb, j1, kb);
       const bool pick_a = use_a && (!use_b || key_le<NL>(ka, kb));
 #pragma unroll
       for (int l = 0; l < NL; ++l) sm.next[l] = pick_a ? ka[l] : kb[l];
@@ -272,7 +311,7 @@ __device__ Seg scan_tile(const TileSmem<NL>& sm, int len, SegScan::TempStorage& 
   return total;
 }
 
-template <int NL>
+template <int NL, bool kBDesc>
 __global__ void __launch_bounds__(kThreads)
     stats_kernel(Ops a, Ops b, long long na, long long nb, const long long* splits,
                  long long num_tiles, long long* stats) {
@@ -285,7 +324,7 @@ __global__ void __launch_bounds__(kThreads)
     s_has_end = s_has_open = s_open_sent = s_live = 0;
     s_open_sum = s_tail = 0u;
   }
-  const int len = merge_tile<NL>(a, b, na, nb, splits, t, sm);
+  const int len = merge_tile<NL, kBDesc>(a, b, na, nb, splits, t, sm);
   Items it;
   const Seg total = scan_tile<NL>(sm, len, scan_tmp, it);
   int live = 0;
@@ -318,83 +357,142 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int NL>
+// The last pass of every variant.  carry, out_off and live_total are read
+// only by the variants that need them (fold: carry; compact: all three).
+template <int NL, int V>
 __global__ void __launch_bounds__(kThreads)
-    compact_kernel(Ops a, Ops b, OutOps out, long long na, long long nb,
-                   const long long* splits, const long long* carry,
-                   const long long* out_off, const long long* live_total) {
+    write_kernel(Ops a, Ops b, OutOps out, long long na, long long nb,
+                 const long long* splits, const long long* carry,
+                 const long long* out_off, const long long* live_total) {
+  constexpr bool kBDesc = b_desc(V);
   __shared__ TileSmem<NL> sm;
   __shared__ union {
     SegScan::TempStorage seg;
     RankScan::TempStorage rank;
   } tmp;
   const long long t = blockIdx.x;
-  const int len = merge_tile<NL>(a, b, na, nb, splits, t, sm);
-  Items it;
-  scan_tile<NL>(sm, len, tmp.seg, it);
-  const uint32_t carry_in = (uint32_t)carry[t];
-  uint32_t total[kItems];
-  bool alive[kItems];
-  int n_alive = 0;
-#pragma unroll
-  for (int q = 0; q < kItems; ++q) {
-    const int p = threadIdx.x * kItems + q;
-    total[q] = it.seg[q].flag ? it.seg[q].seg : carry_in + it.seg[q].seg;
-    alive[q] = p < len && it.end[q] && !it.sent[q] && total[q] != 0u;
-    n_alive += alive[q] ? 1 : 0;
-  }
-  __syncthreads();  // tmp.seg is reused as tmp.rank
-  int rank;
-  RankScan(tmp.rank).ExclusiveSum(n_alive, rank);
-  long long pos = out_off[t] + rank;
-#pragma unroll
-  for (int q = 0; q < kItems; ++q) {
-    if (alive[q]) {
-      const int p = threadIdx.x * kItems + q;
-#pragma unroll
-      for (int l = 0; l < NL; ++l) out.p[l][pos] = sm.ops[l][p];
-      out.p[NL][pos] = total[q];
-      ++pos;
-    }
-  }
-  // This tile's share of the rows past the live ones: sentinel key, count 0.
-  const long long n = na + nb;
   const long long d0 = t * kTile;
-  const long long d1 = d0 + kTile < n ? d0 + kTile : n;
-  const long long lt = *live_total;
-  for (long long r = (d0 > lt ? d0 : lt) + threadIdx.x; r < d1; r += kThreads) {
+  const int len = merge_tile<NL, kBDesc>(a, b, na, nb, splits, t, sm);
+  if (folds(V)) {
+    Items it;
+    scan_tile<NL>(sm, len, tmp.seg, it);
+    const uint32_t carry_in = (uint32_t)carry[t];
+    uint32_t total[kItems];
+    bool alive[kItems];
+    int n_alive = 0;
 #pragma unroll
-    for (int l = 0; l < NL; ++l) out.p[l][r] = 0xFFFFFFFFu;
-    out.p[NL][r] = 0u;
+    for (int q = 0; q < kItems; ++q) {
+      const int p = threadIdx.x * kItems + q;
+      total[q] = it.seg[q].flag ? it.seg[q].seg : carry_in + it.seg[q].seg;
+      alive[q] = p < len && it.end[q] && !it.sent[q] &&
+                 (V != kMergeFoldCompactDesc || total[q] != 0u);
+      n_alive += alive[q] ? 1 : 0;
+    }
+    __syncthreads();  // every row's count is read; tmp.seg is free
+    if (V == kMergeFoldCompactDesc) {
+      int rank;
+      RankScan(tmp.rank).ExclusiveSum(n_alive, rank);
+      long long pos = out_off[t] + rank;
+#pragma unroll
+      for (int q = 0; q < kItems; ++q) {
+        if (alive[q]) {
+          const int p = threadIdx.x * kItems + q;
+#pragma unroll
+          for (int l = 0; l < NL; ++l) out.p[l][pos] = sm.ops[l][p];
+          out.p[NL][pos] = total[q];
+          ++pos;
+        }
+      }
+      // This tile's share of the rows past the live ones: sentinel key,
+      // count 0.
+      const long long n = na + nb;
+      const long long d1 = d0 + kTile < n ? d0 + kTile : n;
+      const long long lt = *live_total;
+      for (long long r = (d0 > lt ? d0 : lt) + threadIdx.x; r < d1; r += kThreads) {
+#pragma unroll
+        for (int l = 0; l < NL; ++l) out.p[l][r] = 0xFFFFFFFFu;
+        out.p[NL][r] = 0u;
+      }
+      return;
+    }
+    // K3/K4: the folded counts replace the tile's counts in place.
+#pragma unroll
+    for (int q = 0; q < kItems; ++q) {
+      const int p = threadIdx.x * kItems + q;
+      if (p < len) sm.ops[NL][p] = alive[q] ? total[q] : 0u;
+    }
+    __syncthreads();
+  }
+  // K3/K4/K5: the tile's merged rows at their merged index.
+  for (int r = threadIdx.x; r < len; r += kThreads) {
+#pragma unroll
+    for (int l = 0; l <= NL; ++l) out.p[l][d0 + r] = sm.ops[l][r];
   }
 }
 
 long long num_tiles(long long n) { return lanes::num_tiles(n, kTile); }
 
-template <int NL>
-int run_stats(const Ops& a, const Ops& b, long long na, long long nb, long long* splits,
-              long long* stats, cudaStream_t stream) {
+template <int NL, bool kBDesc>
+int run_splits(const Ops& a, const Ops& b, long long na, long long nb, long long* splits,
+               cudaStream_t stream) {
   const long long tiles = num_tiles(na + nb);
-  const long long split_blocks = (tiles + 1 + 255) / 256;
-  splits_kernel<NL><<<(unsigned)split_blocks, 256, 0, stream>>>(a, b, na, nb, tiles, splits);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  stats_kernel<NL><<<(unsigned)tiles, kThreads, 0, stream>>>(a, b, na, nb, splits, tiles,
-                                                             stats);
+  const long long blocks = (tiles + 1 + 255) / 256;
+  splits_kernel<NL, kBDesc><<<(unsigned)blocks, 256, 0, stream>>>(a, b, na, nb, tiles, splits);
+  return cudaGetLastError();
+}
+
+template <int NL, bool kBDesc>
+int run_stats(const Ops& a, const Ops& b, long long na, long long nb,
+              const long long* splits, long long* stats, cudaStream_t stream) {
+  const long long tiles = num_tiles(na + nb);
+  stats_kernel<NL, kBDesc><<<(unsigned)tiles, kThreads, 0, stream>>>(a, b, na, nb, splits,
+                                                                     tiles, stats);
+  return cudaGetLastError();
+}
+
+struct WriteArgs {
+  Ops a, b;
+  OutOps out;
+  long long na, nb;
+  const long long *splits, *carry, *out_off, *live_total;
+  cudaStream_t stream;
+};
+
+template <int NL, int V>
+int run_write(const WriteArgs& w) {
+  const long long tiles = num_tiles(w.na + w.nb);
+  write_kernel<NL, V><<<(unsigned)tiles, kThreads, 0, w.stream>>>(
+      w.a, w.b, w.out, w.na, w.nb, w.splits, w.carry, w.out_off, w.live_total);
   return cudaGetLastError();
 }
 
 template <int NL>
-int run_compact(const Ops& a, const Ops& b, const OutOps& out, long long na, long long nb,
-                const long long* splits, const long long* carry, const long long* out_off,
-                const long long* live_total, cudaStream_t stream) {
-  const long long tiles = num_tiles(na + nb);
-  compact_kernel<NL><<<(unsigned)tiles, kThreads, 0, stream>>>(a, b, out, na, nb, splits,
-                                                               carry, out_off, live_total);
-  return cudaGetLastError();
+int write_variant(int variant, const WriteArgs& w) {
+  switch (variant) {
+    case kMergeFoldCompactDesc: return run_write<NL, kMergeFoldCompactDesc>(w);
+    case kMergeFoldDesc: return run_write<NL, kMergeFoldDesc>(w);
+    case kMergeFold: return run_write<NL, kMergeFold>(w);
+    case kMerge: return run_write<NL, kMerge>(w);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
+
+// One switch over the key-lane count, shared by the entry points below:
+// CALL(NL) must be an expression that returns the cudaError_t as an int.
+#define MFC_DISPATCH_NL(num_keys, CALL) \
+  switch (num_keys) {                   \
+    case 1: return CALL(1);             \
+    case 2: return CALL(2);             \
+    case 3: return CALL(3);             \
+    case 4: return CALL(4);             \
+    case 5: return CALL(5);             \
+    case 6: return CALL(6);             \
+    case 7: return CALL(7);             \
+    case 8: return CALL(8);             \
+    default: return (int)cudaErrorInvalidValue; \
+  }
 
 extern "C" {
 
@@ -402,56 +500,62 @@ int mfc_tile_rows() { return kTile; }
 
 int mfc_num_stats() { return kNumStats; }
 
-// Passes 1-2.  a_ptrs / b_ptrs: host arrays of num_keys+1 device pointers
-// (key lanes, then the count).  splits: [num_tiles+1] int64; stats:
-// [kNumStats, num_tiles] int64.  Returns a cudaError_t.
-int mfc_stats(const void* const* a_ptrs, const void* const* b_ptrs, int num_keys,
-              long long na, long long nb, void* splits, void* stats, void* stream) {
+int mfc_num_variants() { return kNumVariants; }
+
+// Pass 1.  a_ptrs / b_ptrs: host arrays of num_keys+1 device pointers (key
+// lanes, then the value lane).  splits: [num_tiles+1] int64.  Returns a
+// cudaError_t.
+int mfc_splits(const void* const* a_ptrs, const void* const* b_ptrs, int variant,
+               int num_keys, long long na, long long nb, void* splits, void* stream) {
+  if (variant < 0 || variant >= kNumVariants) return (int)cudaErrorInvalidValue;
   const Ops a = lanes::make_ops(a_ptrs, num_keys + 1);
   const Ops b = lanes::make_ops(b_ptrs, num_keys + 1);
   auto* sp = static_cast<long long*>(splits);
+  auto s = static_cast<cudaStream_t>(stream);
+#define MFC_SPLITS_CALL(NL)                                      \
+  (b_desc(variant) ? run_splits<NL, true>(a, b, na, nb, sp, s) \
+                   : run_splits<NL, false>(a, b, na, nb, sp, s))
+  MFC_DISPATCH_NL(num_keys, MFC_SPLITS_CALL)
+}
+
+// Pass 2, for the fold variants.  stats: [kNumStats, num_tiles] int64.
+int mfc_stats(const void* const* a_ptrs, const void* const* b_ptrs, int variant,
+              int num_keys, long long na, long long nb, const void* splits, void* stats,
+              void* stream) {
+  if (variant < 0 || variant >= kNumVariants || !folds(variant)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Ops a = lanes::make_ops(a_ptrs, num_keys + 1);
+  const Ops b = lanes::make_ops(b_ptrs, num_keys + 1);
+  auto* sp = static_cast<const long long*>(splits);
   auto* st = static_cast<long long*>(stats);
   auto s = static_cast<cudaStream_t>(stream);
-#define MFC_STATS_CALL(NL) run_stats<NL>(a, b, na, nb, sp, st, s)
-  switch (num_keys) {
-    case 1: return MFC_STATS_CALL(1);
-    case 2: return MFC_STATS_CALL(2);
-    case 3: return MFC_STATS_CALL(3);
-    case 4: return MFC_STATS_CALL(4);
-    case 5: return MFC_STATS_CALL(5);
-    case 6: return MFC_STATS_CALL(6);
-    case 7: return MFC_STATS_CALL(7);
-    case 8: return MFC_STATS_CALL(8);
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define MFC_STATS_CALL(NL)                                              \
+  (b_desc(variant) ? run_stats<NL, true>(a, b, na, nb, sp, st, s) \
+                   : run_stats<NL, false>(a, b, na, nb, sp, st, s))
+  MFC_DISPATCH_NL(num_keys, MFC_STATS_CALL)
 }
 
 // Pass 4.  out_ptrs: host array of num_keys+1 device pointers to [na+nb]
-// rows; carry, out_off: [num_tiles] int64; live_total: one int64.
-int mfc_compact(const void* const* a_ptrs, const void* const* b_ptrs,
-                void* const* out_ptrs, int num_keys, long long na, long long nb,
-                const void* splits, const void* carry, const void* out_off,
-                const void* live_total, void* stream) {
-  const Ops a = lanes::make_ops(a_ptrs, num_keys + 1);
-  const Ops b = lanes::make_ops(b_ptrs, num_keys + 1);
-  const OutOps out = lanes::make_out_ops(out_ptrs, num_keys + 1);
-  auto* sp = static_cast<const long long*>(splits);
-  auto* ca = static_cast<const long long*>(carry);
-  auto* off = static_cast<const long long*>(out_off);
-  auto* lt = static_cast<const long long*>(live_total);
-  auto s = static_cast<cudaStream_t>(stream);
-#define MFC_COMPACT_CALL(NL) run_compact<NL>(a, b, out, na, nb, sp, ca, off, lt, s)
-  switch (num_keys) {
-    case 1: return MFC_COMPACT_CALL(1);
-    case 2: return MFC_COMPACT_CALL(2);
-    case 3: return MFC_COMPACT_CALL(3);
-    case 4: return MFC_COMPACT_CALL(4);
-    case 5: return MFC_COMPACT_CALL(5);
-    case 6: return MFC_COMPACT_CALL(6);
-    case 7: return MFC_COMPACT_CALL(7);
-    case 8: return MFC_COMPACT_CALL(8);
-    default: return (int)cudaErrorInvalidValue;
-  }
+// rows; carry (fold variants), out_off and live_total (K1): [num_tiles]
+// int64 and one int64; the pointers a variant does not read may be null.
+int mfc_write(const void* const* a_ptrs, const void* const* b_ptrs, void* const* out_ptrs,
+              int variant, int num_keys, long long na, long long nb, const void* splits,
+              const void* carry, const void* out_off, const void* live_total,
+              void* stream) {
+  WriteArgs w;
+  w.a = lanes::make_ops(a_ptrs, num_keys + 1);
+  w.b = lanes::make_ops(b_ptrs, num_keys + 1);
+  w.out = lanes::make_out_ops(out_ptrs, num_keys + 1);
+  w.na = na;
+  w.nb = nb;
+  w.splits = static_cast<const long long*>(splits);
+  w.carry = static_cast<const long long*>(carry);
+  w.out_off = static_cast<const long long*>(out_off);
+  w.live_total = static_cast<const long long*>(live_total);
+  w.stream = static_cast<cudaStream_t>(stream);
+#define MFC_WRITE_CALL(NL) write_variant<NL>(variant, w)
+  MFC_DISPATCH_NL(num_keys, MFC_WRITE_CALL)
 }
 
 }  // extern "C"

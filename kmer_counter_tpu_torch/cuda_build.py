@@ -40,6 +40,12 @@ build_seconds: dict[str, float] = {}
 build_log: dict[str, str] = {}
 
 
+def ptr_array(tensors) -> ctypes.Array:
+    """A C array of the tensors' device pointers (``void* const*``), for
+    the kernels' entry points; the caller keeps the tensors alive."""
+    return (ctypes.c_void_p * len(tensors))(*[v.data_ptr() for v in tensors])
+
+
 def nvcc_path() -> str:
     """The nvcc binary: $CUDA_HOME/bin, then PATH, then /usr/local/cuda."""
     cands = []

@@ -30,11 +30,11 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from kmer_counter_tpu import records
-from kmer_counter_tpu.config import Options
-from kmer_counter_tpu.io.dump import dump_table
-from kmer_counter_tpu.io.fastq import DirectoryInput, ParallelIngest
-from kmer_counter_tpu.metrics import Metrics
+from kmer_counter_tpu_torch import records
+from kmer_counter_tpu_torch.config import Options
+from kmer_counter_tpu_torch.io.dump import dump_table
+from kmer_counter_tpu_torch.io.fastq import DirectoryInput, ParallelIngest
+from kmer_counter_tpu_torch.metrics import Metrics
 from kmer_counter_tpu_torch.ops.pipeline import chunk_slots
 from kmer_counter_tpu_torch.ops.u32 import to_numpy
 
@@ -106,7 +106,7 @@ def _start_monitor(opts: Options, stats: RunStats, gauge_extra):
 
     if opts.verbose < 2:
         return contextlib.nullcontext()
-    from kmer_counter_tpu.metrics import SizeMonitor
+    from kmer_counter_tpu_torch.metrics import SizeMonitor
 
     return SizeMonitor(
         lambda: f"reads={stats.reads} chunks={stats.chunks} "

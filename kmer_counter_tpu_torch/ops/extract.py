@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from kmer_counter_tpu.records import BASES_PER_LANE, active_lanes
+from kmer_counter_tpu_torch.records import BASES_PER_LANE, active_lanes
 from kmer_counter_tpu_torch.ops.u32 import MASK
 
 

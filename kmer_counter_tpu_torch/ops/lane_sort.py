@@ -21,11 +21,11 @@ whose merge pass can drop it).
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
 
 import torch
 
 from kmer_counter_tpu_torch import cuda_build
+from kmer_counter_tpu_torch.cuda_build import ptr_array
 from kmer_counter_tpu_torch.ops.sortcount import lex_argsort
 
 MAX_KEYS = 8
@@ -85,10 +85,6 @@ def tile_rows(num_keys: int) -> int:
     return _lib().ls_tile_rows(num_keys)
 
 
-def _ptr_array(ops: Sequence[torch.Tensor]):
-    return (ctypes.c_void_p * len(ops))(*[v.data_ptr() for v in ops])
-
-
 def _launch(keys: torch.Tensor, payload: torch.Tensor):
     """leaf_sort into one of two ping-pong buffers, then merge passes
     (runs of tile, 2·tile, ... rows) until one run holds all n rows."""
@@ -100,8 +96,8 @@ def _launch(keys: torch.Tensor, payload: torch.Tensor):
         return bufs[0][:NL], bufs[0][NL]
     tile = lib.ls_tile_rows(NL)
     stream = torch.cuda.current_stream(keys.device).cuda_stream
-    buf_ptrs = [_ptr_array(list(b.unbind(0))) for b in bufs]
-    err = lib.ls_leaf_sort(_ptr_array([*keys.unbind(0), payload]), buf_ptrs[0], NL, n, stream)
+    buf_ptrs = [ptr_array(list(b.unbind(0))) for b in bufs]
+    err = lib.ls_leaf_sort(ptr_array([*keys.unbind(0), payload]), buf_ptrs[0], NL, n, stream)
     if err:
         raise RuntimeError(f"lane_sort leaf launch failed: cudaError {err}")
     launches += 1

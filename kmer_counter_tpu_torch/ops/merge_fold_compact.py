@@ -26,6 +26,7 @@ from typing import Sequence
 import torch
 
 from kmer_counter_tpu_torch import cuda_build
+from kmer_counter_tpu_torch.cuda_build import ptr_array
 from kmer_counter_tpu_torch.ops.sortcount import lex_argsort, run_heads, run_totals
 from kmer_counter_tpu_torch.ops.u32 import SENTINEL, narrow, widen
 
@@ -35,7 +36,8 @@ MAX_KEYS = 8
 launches = 0
 
 
-def _check(a_ops: Sequence[torch.Tensor], b_ops: Sequence[torch.Tensor], num_keys: int):
+def check_operands(a_ops: Sequence[torch.Tensor], b_ops: Sequence[torch.Tensor], num_keys: int):
+    """Raises on operands the merge kernels do not take."""
     if not 1 <= num_keys <= MAX_KEYS:
         raise ValueError(f"num_keys must be in [1, {MAX_KEYS}], got {num_keys}")
     if len(a_ops) != num_keys + 1 or len(b_ops) != num_keys + 1:
@@ -58,7 +60,7 @@ def merge_fold_compact(
     a_ops: Sequence[torch.Tensor], b_desc_ops: Sequence[torch.Tensor], num_keys: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1: the kernel for CUDA tensors, the plain version for CPU tensors."""
-    _check(a_ops, b_desc_ops, num_keys)
+    check_operands(a_ops, b_desc_ops, num_keys)
     device = a_ops[0].device
     if device.type == "cpu":
         return merge_fold_compact_reference(a_ops, b_desc_ops, num_keys)
@@ -96,10 +98,20 @@ def merge_fold_compact_reference(
 
 
 # ---- the CUDA kernel -------------------------------------------------------
+#
+# csrc/merge_fold_compact.cu is one template over (B descending, fold,
+# compact); ``launch`` runs its passes for one variant.  K1 is used here,
+# the other three by ops.merge_runs.
 
 # Rows of the kernel's per-tile stats array (enum Stat in the .cu source).
 (TILE_SUM, HAS_END, OPEN_SUM, HAS_OPEN, OPEN_SENT, LIVE_LOCAL, TAIL) = range(7)
 NUM_STATS = 7
+# The template's variants (enum Variant in the .cu source): the Pallas
+# functions they replace are merge_fold_compact_bitonic (K1),
+# merge_sorted_runs_fold_bitonic (K3), merge_sorted_runs_fold (K4) and
+# merge_sorted_runs (K5).
+K1, K3, K4, K5 = range(4)
+NUM_VARIANTS = 4
 
 
 def _lib() -> ctypes.CDLL:
@@ -109,12 +121,15 @@ def _lib() -> ctypes.CDLL:
         ptrs = ctypes.POINTER(ctypes.c_void_p)
         lib.mfc_tile_rows.argtypes, lib.mfc_tile_rows.restype = [], i
         lib.mfc_num_stats.argtypes, lib.mfc_num_stats.restype = [], i
-        lib.mfc_stats.argtypes = [ptrs, ptrs, i, ll, ll, vp, vp, vp]
+        lib.mfc_num_variants.argtypes, lib.mfc_num_variants.restype = [], i
+        lib.mfc_splits.argtypes = [ptrs, ptrs, i, i, ll, ll, vp, vp]
+        lib.mfc_splits.restype = i
+        lib.mfc_stats.argtypes = [ptrs, ptrs, i, i, ll, ll, vp, vp, vp]
         lib.mfc_stats.restype = i
-        lib.mfc_compact.argtypes = [ptrs, ptrs, ptrs, i, ll, ll, vp, vp, vp, vp, vp]
-        lib.mfc_compact.restype = i
-        if lib.mfc_num_stats() != NUM_STATS:
-            raise RuntimeError("merge_fold_compact.cu and its wrapper disagree on the stats layout")
+        lib.mfc_write.argtypes = [ptrs, ptrs, ptrs, i, i, ll, ll, vp, vp, vp, vp, vp]
+        lib.mfc_write.restype = i
+        if lib.mfc_num_stats() != NUM_STATS or lib.mfc_num_variants() != NUM_VARIANTS:
+            raise RuntimeError("merge_fold_compact.cu and its wrapper disagree on its layout")
         lib._mfc_typed = True
     return lib
 
@@ -152,12 +167,19 @@ def tile_carry_and_offsets(stats: torch.Tensor) -> tuple[torch.Tensor, torch.Ten
     return carry, out_off, live.sum()
 
 
-def _ptr_array(ops: Sequence[torch.Tensor]):
-    return (ctypes.c_void_p * len(ops))(*[v.data_ptr() for v in ops])
-
-
 def _launch(a_ops, b_ops, num_keys):
     global launches
+    out, live_total = launch(K1, a_ops, b_ops, num_keys)
+    if out.shape[1]:
+        launches += 1
+    return out, live_total
+
+
+def launch(variant: int, a_ops, b_ops, num_keys: int):
+    """Runs the kernel template's passes for ``variant`` on checked CUDA
+    operands: splits, then (fold variants) the per-tile stats and the
+    torch scans, then the write pass.  Returns ``(out [NL+1, na+nb],
+    live_total)``; live_total is a 0-d int64 tensor for K1, else None."""
     lib = _lib()
     device = a_ops[0].device
     NL = num_keys
@@ -165,22 +187,28 @@ def _launch(a_ops, b_ops, num_keys):
     n = na + nb
     out = torch.empty((NL + 1, n), dtype=torch.int32, device=device)
     if n == 0:
-        return out, torch.zeros((), dtype=torch.int64, device=device)
+        return out, (torch.zeros((), dtype=torch.int64, device=device) if variant == K1 else None)
     tiles = -(-n // lib.mfc_tile_rows())
     splits = torch.empty(tiles + 1, dtype=torch.int64, device=device)
-    stats = torch.empty((NUM_STATS, tiles), dtype=torch.int64, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    a_ptrs, b_ptrs = _ptr_array(a_ops), _ptr_array(b_ops)
-    err = lib.mfc_stats(a_ptrs, b_ptrs, NL, na, nb, splits.data_ptr(), stats.data_ptr(), stream)
+    a_ptrs, b_ptrs = ptr_array(a_ops), ptr_array(b_ops)
+    err = lib.mfc_splits(a_ptrs, b_ptrs, variant, NL, na, nb, splits.data_ptr(), stream)
     if err:
-        raise RuntimeError(f"merge_fold_compact stats launch failed: cudaError {err}")
-    carry, out_off, live_total = tile_carry_and_offsets(stats)
-    out_ptrs = _ptr_array(list(out.unbind(0)))
-    err = lib.mfc_compact(
-        a_ptrs, b_ptrs, out_ptrs, NL, na, nb, splits.data_ptr(), carry.data_ptr(),
-        out_off.data_ptr(), live_total.data_ptr(), stream,
+        raise RuntimeError(f"merge_fold_compact splits launch failed: cudaError {err}")
+    carry = out_off = live_total = None
+    if variant != K5:
+        stats = torch.empty((NUM_STATS, tiles), dtype=torch.int64, device=device)
+        err = lib.mfc_stats(a_ptrs, b_ptrs, variant, NL, na, nb, splits.data_ptr(),
+                            stats.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"merge_fold_compact stats launch failed: cudaError {err}")
+        carry, out_off, live_total = tile_carry_and_offsets(stats)
+        if variant != K1:
+            out_off = live_total = None
+    err = lib.mfc_write(
+        a_ptrs, b_ptrs, ptr_array(list(out.unbind(0))), variant, NL, na, nb, splits.data_ptr(),
+        *(None if v is None else v.data_ptr() for v in (carry, out_off, live_total)), stream,
     )
     if err:
-        raise RuntimeError(f"merge_fold_compact compact launch failed: cudaError {err}")
-    launches += 1
+        raise RuntimeError(f"merge_fold_compact write launch failed: cudaError {err}")
     return out, live_total

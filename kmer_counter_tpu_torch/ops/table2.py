@@ -2,13 +2,18 @@
 
 A deduplicated, sorted prefix (key lanes + counts) plus a keys-only raw
 region that chunk steps append to.  Consolidation sorts the live raw rows
-descending and merges them into the prefix with the merge-fold-compact
-kernel (ops.merge_fold_compact), which folds duplicate keys and compacts.
+and merges them into the prefix, folding duplicate keys and compacting.
 
-One consolidation path is ported: the JAX package's default (bitonic +
-fused compact, table2.py:495-508).  consolidate2, the odd-even, split and
-monolithic variants, the ``KMER_TPU_*`` switches and the VMEM tile
-choices existed only for Mosaic and the TPU compile path.
+``consolidate3`` takes the JAX function's keywords with its meanings and
+runs each variant through the counterparts of its kernels: the default
+(bitonic + fused compact) through the merge-fold-compact kernel K1
+(ops.merge_fold_compact); the split variants through a merge kernel
+(K3, K4 or K5, ops.merge_runs) and the compaction kernel K2
+(ops.compact_live).  All four give the same result.  The sorts and the
+fold between the kernels are plain torch, as they were XLA (not Pallas)
+in the JAX package.  Not ported: consolidate2, the monolithic programs
+(``KMER_TPU_MONO_CONSOLIDATE``; eager PyTorch has no single program), the
+``KMER_TPU_*`` switches and the VMEM tile choices.
 
 Empty prefix slots hold the sentinel key with count 0 — at creation, after
 a consolidation and after ``grow2`` — so the prefix stays ascending, which
@@ -26,9 +31,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from kmer_counter_tpu_torch.ops.compact_live import compact_live
 from kmer_counter_tpu_torch.ops.merge_fold_compact import merge_fold_compact
-from kmer_counter_tpu_torch.ops.sortcount import lex_argsort, sort_reduce
-from kmer_counter_tpu_torch.ops.u32 import MASK, SENTINEL, from_numpy, to_numpy
+from kmer_counter_tpu_torch.ops.merge_runs import (
+    merge_sorted_runs,
+    merge_sorted_runs_fold,
+    merge_sorted_runs_fold_bitonic,
+)
+from kmer_counter_tpu_torch.ops.sortcount import lex_argsort, run_heads, run_totals, sort_reduce
+from kmer_counter_tpu_torch.ops.u32 import MASK, SENTINEL, from_numpy, narrow, to_numpy, widen
 
 
 @dataclass
@@ -70,23 +81,83 @@ def _sort_raw_desc(raw_lanes: torch.Tensor, raw_off: int):
     return s_desc, ones
 
 
-def consolidate3(table: TwoLevelTable) -> tuple[TwoLevelTable, int, int]:
+def _sort_raw_ones(raw_lanes: torch.Tensor, raw_off: int):
+    """The raw region sorted ascending with 0/1 liveness for a folding
+    merge (counterpart of ``_c3_sort_raw_ones``): the first ``raw_off``
+    rows sorted, sentinel keys after them; liveness is 0 on sentinel rows
+    (masked windows included) and 1 elsewhere."""
+    live = raw_lanes[:, :raw_off]
+    s = torch.full_like(raw_lanes, SENTINEL)
+    s[:, :raw_off] = live[:, lex_argsort(live)]
+    return s, (~(s == SENTINEL).all(dim=0)).to(torch.int32)
+
+
+def _sort_raw(raw_lanes: torch.Tensor, raw_off: int):
+    """The raw region sorted ascending with its multiplicities on run heads
+    (counterpart of ``_c3_sort_raw`` + ``_raw_counts_in_place``): a head
+    row carries its run's length, every other row 0, sentinel rows 0."""
+    s, _ = _sort_raw_ones(raw_lanes, raw_off)
+    head_idx = torch.nonzero(run_heads(s)).squeeze(1)
+    lengths = torch.diff(head_idx, append=head_idx.new_tensor([s.shape[1]]))
+    counts = torch.zeros(s.shape[1], dtype=torch.int32, device=s.device)
+    counts[head_idx] = lengths.to(torch.int32)
+    counts[(s == SENTINEL).all(dim=0)] = 0
+    return s, counts
+
+
+def _fold_counts_in_place(lanes: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """Each run's total count (mod 2^32) on the run's HEAD row, 0 on its
+    other rows and on sentinel rows; keys untouched (counterpart of
+    ``table2._fold_counts_in_place``; K3/K4 put totals on the LAST row,
+    and after the compaction both give the same prefix)."""
+    head_idx = torch.nonzero(run_heads(lanes)).squeeze(1)
+    folded = torch.zeros_like(counts)
+    folded[head_idx] = narrow(run_totals(widen(counts), head_idx))
+    folded[(lanes == SENTINEL).all(dim=0)] = 0
+    return folded
+
+
+def consolidate3(
+    table: TwoLevelTable, *, fold_fused: bool = True, bitonic: bool = True, fused_compact: bool = True
+) -> tuple[TwoLevelTable, int, int]:
     """Merge the raw region into the prefix.
 
     Returns (table', live, lost): live = prefix rows in use afterwards;
     lost = live records that did not fit the prefix (must be 0: the
     caller grows the prefix first).  The new prefix is a copy of the
-    first CP columns of the kernel's [NL+1, CP+CR] output, so the CR-column
+    first CP columns of the [NL+1, CP+CR] compacted rows, so the CR-column
     tail is freed with it; the raw buffer is reused.
+
+    The keywords select the JAX function's variants, with its meanings:
+    ``bitonic`` merges a descending raw sort and implies the fold; with
+    ``fused_compact`` the merge also compacts (K1), without it the merge
+    (K3) leaves the compaction to K2.  ``bitonic=False`` merges an
+    ascending raw sort, with the fold in the merge kernel (K4) when
+    ``fold_fused``, else with multiplicities from the sort, a plain merge
+    (K5) and the fold in torch; then K2.  Every variant returns the same.
     """
     NL, CP = table.prefix_lanes.shape
-    s_desc, ones = _sort_raw_desc(table.raw_lanes, table.raw_off)
-    out, live_count = merge_fold_compact(
-        [*table.prefix_lanes.unbind(0), table.prefix_counts],
-        [*s_desc.unbind(0), ones],
-        NL,
-    )
-    del s_desc, ones
+    a_ops = [*table.prefix_lanes.unbind(0), table.prefix_counts]
+    if bitonic and fused_compact:
+        s_desc, ones = _sort_raw_desc(table.raw_lanes, table.raw_off)
+        out, live_count = merge_fold_compact(a_ops, [*s_desc.unbind(0), ones], NL)
+        del s_desc, ones
+    else:
+        if bitonic:
+            s_desc, ones = _sort_raw_desc(table.raw_lanes, table.raw_off)
+            merged = merge_sorted_runs_fold_bitonic(a_ops, [*s_desc.unbind(0), ones], NL)
+            del s_desc, ones
+        else:
+            s, counts = (_sort_raw_ones if fold_fused else _sort_raw)(table.raw_lanes, table.raw_off)
+            merge = merge_sorted_runs_fold if fold_fused else merge_sorted_runs
+            merged = merge(a_ops, [*s.unbind(0), counts], NL)
+            del s, counts
+            if not fold_fused:
+                merged[NL] = _fold_counts_in_place(merged[:NL], merged[NL])
+        folded = merged[NL]
+        live_count = (folded != 0).sum()
+        out = compact_live(list(merged.unbind(0)), folded, NL)
+        del merged, folded
     live_count = int(live_count)
     prefix = out[:, :CP].clone()
     del out

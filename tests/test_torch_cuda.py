@@ -6,11 +6,13 @@ without the repo's conftest (which configures JAX):
 
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 
-Its case builders are shared with tests/test_torch_merge_fold_compact.py
-and tests/test_torch_lane_sort.py (the plain versions against the JAX
-package) and chip_smoke.py.  Tolerance: bit-exact equality — everything
-is integer.  The sort leaves the order among equal keys unspecified, so
-its payloads are compared as a multiset per key.
+Its case builders are shared with the CPU tests that hold the plain
+versions against the JAX package (tests/test_torch_merge_fold_compact.py,
+test_torch_merge_runs.py, test_torch_compact_live.py,
+test_torch_lane_sort.py, test_torch_table2.py, test_torch_engine.py) and
+with chip_smoke.py.  Tolerance: bit-exact equality — everything is
+integer.  The sort and merge_sorted_runs leave the order among equal keys
+unspecified, so their payloads are compared as a multiset per key.
 """
 
 import os
@@ -124,6 +126,40 @@ EDGE_CASES = {
     "na_much_smaller_than_nb": _na_much_smaller,
     "only_sentinels_and_dead_rows": _only_sentinels_and_dead,
 }
+
+
+# table2.consolidate3's keyword combinations, which select the JAX
+# function's variants: the default runs K1; the split variants run a merge
+# kernel (K3, K4 or K5) and then K2.
+CONSOLIDATE_VARIANTS = {
+    "merge_fold_compact": dict(fold_fused=True, bitonic=True, fused_compact=True),
+    "fold_bitonic": dict(fold_fused=True, bitonic=True, fused_compact=False),
+    "fold": dict(fold_fused=True, bitonic=False, fused_compact=False),
+    "plain": dict(fold_fused=False, bitonic=False, fused_compact=False),
+}
+SPLIT_VARIANTS = sorted(set(CONSOLIDATE_VARIANTS) - {"merge_fold_compact"})
+# The merge kernel that each split variant launches (ops.merge_runs names).
+VARIANT_MERGE = {
+    "fold_bitonic": "merge_sorted_runs_fold_bitonic",
+    "fold": "merge_sorted_runs_fold",
+    "plain": "merge_sorted_runs",
+}
+
+
+def compact_case(rng, NL, n, density):
+    """K2 operands: NL random key lanes and a count lane (lists of numpy
+    uint32 arrays), and live flags, nonzero (any uint32 value) at about
+    the given density."""
+    ops = list(rng.integers(0, 2**32, (NL + 1, n), dtype=np.uint64).astype(np.uint32))
+    live = rng.integers(1, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    live[rng.random(n) >= density] = 0
+    return ops, live
+
+
+def ascending_case(case):
+    """A case with B read ascending (the layout of K4 and K5)."""
+    NL, a, ac, bd, bc = case
+    return NL, a, ac, np.ascontiguousarray(bd[:, ::-1]), np.ascontiguousarray(bc[::-1])
 
 
 def operands(case, device):
@@ -256,6 +292,129 @@ def test_cli_on_cuda_matches_golden(cuda, tmp_path, k, canonical):
     assert out.read_bytes() == golden.serialize_counter(golden.count_reads(reads, k, canonical))
 
 
+# ---- the merges K3, K4, K5 and the compaction K2 ----------------------------
+
+
+def merge_case_layout(kernel, case):
+    """A K1-layout case (B stored descending) in the layout of a merge
+    kernel of ops.merge_runs: B ascending except for the bitonic one."""
+    return case if kernel == "merge_sorted_runs_fold_bitonic" else ascending_case(case)
+
+
+def merge_outputs_agree(kernel, got, want) -> bool:
+    """[NL+1, n] merge outputs: bit-identical for the folding merges; for
+    merge_sorted_runs, keys bit-identical and the same payloads under each
+    key (the order among equal keys is free)."""
+    if kernel != "merge_sorted_runs":
+        return torch.equal(got, want)
+    return sort_outputs_agree((got[:-1], got[-1]), (want[:-1], want[-1]))
+
+
+MERGE_KERNELS = ["merge_sorted_runs_fold_bitonic", "merge_sorted_runs_fold", "merge_sorted_runs"]
+
+
+def _merge_vs_plain(kernel, case, device):
+    from kmer_counter_tpu_torch.ops import merge_runs as mr
+
+    a_ops, b_ops, NL = operands(merge_case_layout(kernel, case), device)
+    before = mr.launches[kernel]
+    got = getattr(mr, kernel)(a_ops, b_ops, NL)
+    torch.cuda.synchronize()
+    assert mr.launches[kernel] == before + (1 if got.shape[1] else 0)
+    want = getattr(mr, kernel + "_reference")(a_ops, b_ops, NL)
+    assert merge_outputs_agree(kernel, got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", MERGE_KERNELS)
+@pytest.mark.parametrize("name", sorted(EDGE_CASES))
+def test_merge_kernels_edge_cases(cuda, kernel, name):
+    _merge_vs_plain(kernel, EDGE_CASES[name](np.random.default_rng(0)), cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", MERGE_KERNELS)
+@pytest.mark.parametrize("NL", range(1, 9))
+def test_merge_kernels_random(cuda, kernel, NL):
+    # ragged sizes: na + nb is no multiple of the tile
+    _merge_vs_plain(kernel, random_case(np.random.default_rng(NL), NL, 21_001, 150_007), cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", MERGE_KERNELS)
+@pytest.mark.parametrize("na,nb", [(0, 3000), (3000, 0), (1, 1), (0, 0)])
+def test_merge_kernels_empty_and_tiny_sides(cuda, kernel, na, nb):
+    _merge_vs_plain(kernel, random_case(np.random.default_rng(na + nb), 2, na, nb), cuda)
+
+
+def _compact_vs_plain(ops, live, num_keys, device):
+    from kmer_counter_tpu_torch.ops import compact_live as cl
+    from kmer_counter_tpu_torch.ops.u32 import from_numpy
+
+    ops = [from_numpy(v, device) for v in ops]
+    live = from_numpy(live, device)
+    before = cl.launches
+    got = cl.compact_live(ops, live, num_keys)
+    torch.cuda.synchronize()
+    assert cl.launches == before + (1 if live.numel() else 0)
+    assert torch.equal(got, cl.compact_live_reference(ops, live, num_keys))
+
+
+@pytest.mark.gpu
+def test_compact_tile_rows(cuda):
+    from kmer_counter_tpu_torch.ops import compact_live as cl
+
+    assert cl.tile_rows() == 4096
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("density", [0.0, 0.5, 0.97, 1.0])
+@pytest.mark.parametrize("n", [0, 1, 31, 4095, 4096, 4097, 1_000_003])
+def test_compact_kernel(cuda, density, n):
+    ops, live = compact_case(np.random.default_rng(n), 2, n, density)
+    _compact_vs_plain(ops, live, 2, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_ops,num_keys", [(1, 1), (5, 4), (9, 8), (3, 0)])
+def test_compact_kernel_widths(cuda, n_ops, num_keys):
+    ops, live = compact_case(np.random.default_rng(n_ops), n_ops - 1, 300_001, 0.3)
+    _compact_vs_plain(ops, live, num_keys, cuda)
+    _compact_vs_plain(ops, ops[-1], num_keys, cuda)  # the flags are one of the operands
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", SPLIT_VARIANTS)
+@pytest.mark.parametrize("k,canonical", [(16, False), (31, True), (55, False)])
+def test_cli_on_cuda_with_each_split_consolidation_matches_golden(cuda, tmp_path, monkeypatch, variant,
+                                                                  k, canonical):
+    import functools
+
+    from kmer_counter_tpu import golden
+    from kmer_counter_tpu.utils import seqgen
+    from kmer_counter_tpu_torch.__main__ import main
+    from kmer_counter_tpu_torch.ops import compact_live as cl
+    from kmer_counter_tpu_torch.ops import merge_fold_compact as mfc
+    from kmer_counter_tpu_torch.ops import merge_runs as mr
+    from kmer_counter_tpu_torch.ops import table2 as t2
+
+    monkeypatch.setattr(t2, "consolidate3",
+                        functools.partial(t2.consolidate3, **CONSOLIDATE_VARIANTS[variant]))
+    rng = np.random.default_rng(k)
+    reads = seqgen.sample_reads(rng, seqgen.random_genome(rng, 20_000), 600, 150, 0.01)
+    reads[3] = ord("T")
+    seqgen.write_fastq_file(os.path.join(tmp_path, "in", "a.fastq"), reads)
+    out = tmp_path / "out.bin"
+    before = (mr.launches[VARIANT_MERGE[variant]], cl.launches, mfc.launches)
+    rc = main([f"kmerLength={k}", f"canonical={str(canonical).lower()}", "tableImpl=two",
+               f"inputFileLocation={tmp_path / 'in'}", f"outputFile={out}", "tableSlots=20000",
+               "readsPerChunk=100", "verbose=0"])
+    assert rc == 0
+    after = (mr.launches[VARIANT_MERGE[variant]], cl.launches, mfc.launches)
+    assert after[0] >= before[0] + 2 and after[1] >= before[1] + 2 and after[2] == before[2]
+    assert out.read_bytes() == golden.serialize_counter(golden.count_reads(reads, k, canonical))
+
+
 # ---- the multi-lane sort (K6 + K7) -------------------------------------------
 
 
@@ -302,11 +461,12 @@ def test_sort_kernel_payload_is_a_permutation(cuda):
 
 @pytest.mark.gpu
 def test_sort_failed_launch_raises_and_never_falls_back(cuda, monkeypatch):
+    from kmer_counter_tpu_torch.cuda_build import ptr_array
     from kmer_counter_tpu_torch.ops import lane_sort as ls
 
     keys = torch.zeros((2, 10), dtype=torch.int32, device=cuda)
     lib = ls._lib()
-    bad = ls._ptr_array([keys[0], keys[1], keys[0]])
+    bad = ptr_array([keys[0], keys[1], keys[0]])
     assert lib.ls_leaf_sort(bad, bad, 9, 10, torch.cuda.current_stream().cuda_stream) != 0
 
     class Refusing:

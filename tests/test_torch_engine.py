@@ -4,6 +4,8 @@ CountEngine (tableImpl=two) and CLI, and against golden.
 Output files must be byte-identical; print mode must render the same text.
 """
 
+import functools
+
 import pytest
 import torch
 
@@ -15,6 +17,7 @@ from kmer_counter_tpu_torch.__main__ import main
 from kmer_counter_tpu_torch.engine import CountEngine, plan_chunks
 
 from tests.test_ingest import random_seqs, write_fastq
+from tests.test_torch_cuda import CONSOLIDATE_VARIANTS, SPLIT_VARIANTS, VARIANT_MERGE
 
 CPU = torch.device("cpu")
 
@@ -124,3 +127,41 @@ def test_cli_and_print_mode_match_jax_cli(tmp_path, rng, capsys):
 def test_cli_missing_flags(capsys):
     assert main(["kmerLength=13"], device=CPU) == 2
     assert "required flag" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("k,canonical,all_t", [(16, False, True), (31, True, False)])
+@pytest.mark.parametrize("variant", SPLIT_VARIANTS)
+def test_cli_with_each_split_consolidation_matches_golden(tmp_path, rng, monkeypatch, variant, k,
+                                                          canonical, all_t):
+    """The CLI with table2.consolidate3 bound to a split variant, as
+    chip_smoke.py binds it: the variant's merge and K2 run at every
+    consolidation, K1 never, and the dump equals golden."""
+    from kmer_counter_tpu_torch.ops import table2 as t2
+
+    calls = {"merge": 0, "compact_live": 0, "merge_fold_compact": 0}
+
+    def counting(key, fn):
+        def call(*args):
+            calls[key] += 1
+            return fn(*args)
+
+        return call
+
+    merge = VARIANT_MERGE[variant]
+    monkeypatch.setattr(t2, merge, counting("merge", getattr(t2, merge)))
+    for name in ("compact_live", "merge_fold_compact"):
+        monkeypatch.setattr(t2, name, counting(name, getattr(t2, name)))
+    monkeypatch.setattr(t2, "consolidate3",
+                        functools.partial(t2.consolidate3, **CONSOLIDATE_VARIANTS[variant]))
+    (tmp_path / "in").mkdir()
+    seqs = random_seqs(rng, 30, 70, alphabet="ACGTN")
+    if all_t:
+        seqs[5] = "T" * 70
+    write_fastq(tmp_path / "in" / "a.fastq", seqs)
+    out = tmp_path / "o.bin"
+    argv = [f"kmerLength={k}", f"canonical={str(canonical).lower()}", f"inputFileLocation={tmp_path / 'in'}",
+            f"outputFile={out}", "readsPerChunk=4", "tableSlots=64", "tableImpl=two", "verbose=0"]
+    assert main(argv, device=CPU) == 0
+    assert out.read_bytes() == golden_bytes(tmp_path, k, canonical)
+    assert calls["merge"] >= 2 and calls["compact_live"] == calls["merge"]
+    assert calls["merge_fold_compact"] == 0

@@ -1,32 +1,45 @@
-"""The torch port imports no JAX, and asking it for CUDA without a GPU fails
-loudly instead of running on the CPU."""
+"""The torch port imports neither JAX nor anything of the JAX package, and
+asking it for CUDA without a GPU fails loudly instead of running on the
+CPU."""
 
+import ast
 import os
+import shutil
 import subprocess
 import sys
 
 import pytest
 import torch
 
-from kmer_counter_tpu.config import Options
+from kmer_counter_tpu_torch.config import Options
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PORT_MODULES = [
     "kmer_counter_tpu_torch",
     "kmer_counter_tpu_torch.__main__",
+    "kmer_counter_tpu_torch.config",
     "kmer_counter_tpu_torch.cuda_build",
     "kmer_counter_tpu_torch.engine",
+    "kmer_counter_tpu_torch.io",
+    "kmer_counter_tpu_torch.io.dump",
+    "kmer_counter_tpu_torch.io.fastq",
+    "kmer_counter_tpu_torch.io.native",
+    "kmer_counter_tpu_torch.io.printer",
+    "kmer_counter_tpu_torch.metrics",
     "kmer_counter_tpu_torch.ops",
+    "kmer_counter_tpu_torch.ops.compact_live",
     "kmer_counter_tpu_torch.ops.encode",
     "kmer_counter_tpu_torch.ops.extract",
     "kmer_counter_tpu_torch.ops.lane_sort",
     "kmer_counter_tpu_torch.ops.merge_fold_compact",
+    "kmer_counter_tpu_torch.ops.merge_runs",
     "kmer_counter_tpu_torch.ops.pipeline",
     "kmer_counter_tpu_torch.ops.sortcount",
     "kmer_counter_tpu_torch.ops.table",
     "kmer_counter_tpu_torch.ops.table2",
     "kmer_counter_tpu_torch.ops.u32",
+    "kmer_counter_tpu_torch.records",
 ]
 
 
@@ -48,12 +61,13 @@ def test_port_lists_every_module():
 
 
 def test_port_imports_no_jax():
-    # A subprocess: this test process already imported jax (conftest).
+    # A subprocess: this test process already imported jax (conftest) and
+    # the JAX package.
     code = (
         "import importlib, sys\n"
         f"for m in {PORT_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'kmer_counter_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -123,3 +137,38 @@ def test_sort_wrapper_has_no_fallback_for_other_devices():
     keys = torch.zeros((2, 4), dtype=torch.int32, device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         sort_ops(keys, keys[0].clone())
+
+
+def _imported_packages(path):
+    tree = ast.parse(open(path).read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            names.add(node.module.split(".")[0])
+    return names
+
+
+def test_no_port_source_names_the_jax_package_in_an_import():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "kmer_counter_tpu_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    for path in paths:
+        assert not _imported_packages(path) & {"jax", "kmer_counter_tpu"}, path
+
+
+def test_chip_smoke_fails_without_cuda_and_prints_no_result(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], capture_output=True, text=True,
+                          env=_clean_env(), cwd=REPO, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), alone)
+    env = {k: v for k, v in _clean_env().items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, str(alone)], capture_output=True, text=True, env=env,
+                          cwd=tmp_path, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

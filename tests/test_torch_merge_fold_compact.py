@@ -106,11 +106,12 @@ def test_jax_k1_over_counts_after_grow2_zero_padding():
     _check_vs_jax((1, a_sent, ac, b[None], bc))
 
 
-def _emulate_kernel(case, T):
-    """The CUDA kernel's passes in numpy for a tile of T rows: tile t holds
-    merged rows [t*T, (t+1)*T); per-tile stats as stats_kernel writes
-    them; mfc.tile_carry_and_offsets; then compaction as compact_kernel
-    does it."""
+def tile_scan(case, T):
+    """The merge and the per-tile scan of the CUDA kernel's fold variants
+    in numpy for a tile of T rows (tile t holds merged rows [t*T,
+    (t+1)*T)): the merged keys ``[n, NL]`` and counts, run ends, sentinel
+    rows, each row's (flag, seg) of the block's segmented scan, and the
+    per-tile stats as stats_kernel writes them."""
     NL, a, ac, bd, bc = case
     keys = np.concatenate([a, bd[:, ::-1]], 1).T
     cnt = np.concatenate([ac, bc[::-1]]).astype(np.int64)
@@ -141,6 +142,15 @@ def _emulate_kernel(case, T):
             if p == min(t * T + T, n) - 1:
                 stats[mfc.TAIL, t] = 0 if end[p] else seg
         stats[mfc.TILE_SUM, t] = tot
+    return keys, cnt, end, sent, rows, stats
+
+
+def _emulate_kernel(case, T):
+    """K1's passes in numpy for a tile of T rows: tile_scan, then
+    mfc.tile_carry_and_offsets, then compaction as the write pass does it."""
+    NL = case[0]
+    keys, _, end, sent, rows, stats = tile_scan(case, T)
+    n, tiles = len(rows), stats.shape[1]
     carry, out_off, live_total = mfc.tile_carry_and_offsets(torch.from_numpy(stats))
     out = np.full((NL + 1, n), M, np.uint32)
     out[NL] = 0

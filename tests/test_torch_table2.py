@@ -17,15 +17,19 @@ from kmer_counter_tpu.ops import table2 as jt2
 from kmer_counter_tpu.ops.pipeline import extract_chunk_keys as jax_extract
 from kmer_counter_tpu_torch.ops import table2 as t2
 from kmer_counter_tpu_torch.ops.pipeline import count_step_two_level
+from kmer_counter_tpu_torch.ops.u32 import from_numpy, to_numpy
 
 from conftest import random_reads
+from tests.test_torch_cuda import CONSOLIDATE_VARIANTS
 
 CPU = torch.device("cpu")
 
 
-def port_rounds(chunks, k, canonical, cp, cr, consolidate_every=None):
+def port_rounds(chunks, k, canonical, cp, cr, consolidate_every=None, merged=None, **variant):
     """The engine's loop in small: consolidate when the raw region is full
-    (or every few chunks), pre-growing the prefix to live + raw first."""
+    (or every few chunks), pre-growing the prefix to live + raw first.
+    ``variant``: consolidate3's keywords; ``merged``: a list that gets each
+    consolidation's (prefix lanes, prefix counts, live, lost)."""
     table = t2.make_table2(cp, cr, records.active_lanes(k), CPU)
     live = 0
     for i, reads in enumerate(chunks):
@@ -35,8 +39,10 @@ def port_rounds(chunks, k, canonical, cp, cr, consolidate_every=None):
         ):
             if live + table.raw_off > table.prefix_lanes.shape[1]:
                 table = t2.grow2(table, live + table.raw_off, cr)
-            table, live, lost = t2.consolidate3(table)
+            table, live, lost = t2.consolidate3(table, **variant)
             assert lost == 0
+            if merged is not None:
+                merged.append((*t2.table_to_numpy(table)[:2], live, lost))
         count_step_two_level(table, torch.from_numpy(reads), k, canonical)
     if live + table.raw_off > table.prefix_lanes.shape[1]:
         table = t2.grow2(table, live + table.raw_off, cr)
@@ -228,3 +234,77 @@ def test_engine_finalize_sorts_only_the_live_rows(tmp_path, rng, monkeypatch):
                    verbose=0, reads_per_chunk=4, table_slots=64, table_impl="two")
     stats = CountEngine(opts, device=CPU).run()
     assert sizes == [stats.distinct_kmers]  # the one sort of the run: finalize's
+
+
+def _jax_table(port_table):
+    """A JAX TwoLevelTable holding the port table's state (its prefix is
+    padded with the sentinel, which the ascending merges need)."""
+    pl, pc, rl, off, allt = t2.table_to_numpy(port_table)
+    return jt2.TwoLevelTable(jnp.asarray(pl), jnp.asarray(pc), jnp.asarray(rl), jnp.int32(off),
+                             jnp.uint32(allt))
+
+
+@pytest.mark.parametrize("variant", sorted(CONSOLIDATE_VARIANTS))
+def test_consolidate3_variants_match_jax(rng, variant):
+    """Each keyword combination against the JAX consolidate3 of the same
+    keywords (Pallas in interpret mode, one 64K tile): a consolidation in
+    the middle of the run and one at its end, on one identical state."""
+    kw = CONSOLIDATE_VARIANTS[variant]
+    k, canonical = 15, True
+    table = t2.make_table2(16384, 49152, 1, CPU)  # CP + CR == pallas_sort.TILE
+    chunks = [random_reads(rng, 16, 40, invalid_frac=0.05) for _ in range(4)]
+    for i, reads in enumerate([*chunks, None]):
+        if i in (2, len(chunks)):
+            want, want_live, want_lost = jt2.consolidate3(_jax_table(table), _interpret=True, **kw)
+            table, live, lost = t2.consolidate3(table, **kw)
+            assert (live, lost) == (int(want_live), int(want_lost)) and live > 0
+            np.testing.assert_array_equal(t2.table_to_numpy(table)[0], np.asarray(want.prefix_lanes))
+            np.testing.assert_array_equal(t2.table_to_numpy(table)[1], np.asarray(want.prefix_counts))
+        if reads is not None:
+            count_step_two_level(table, torch.from_numpy(reads), k, canonical)
+    assert_same(t2.finalize_host(table, k, live), golden_table(chunks, k, canonical),
+                golden_table(chunks, k, canonical))
+
+
+@pytest.mark.parametrize("k,canonical", [(16, False), (31, True), (55, False)])
+def test_consolidate3_variants_agree(rng, k, canonical):
+    """All four keyword combinations give the same (table', live, lost) at
+    every consolidation of a run that grows its prefix."""
+    L = k + 15
+    chunks = [random_reads(rng, 10, L, invalid_frac=0.03) for _ in range(6)]
+    chunks[2][1] = ord("T")  # all-T windows: the side count at k=16 forward
+    P = L - k + 1
+    runs = {}
+    for name, kw in CONSOLIDATE_VARIANTS.items():
+        runs[name] = []
+        table = port_rounds(chunks, k, canonical, cp=16, cr=2 * 10 * P, consolidate_every=2,
+                            merged=runs[name], **kw)
+        assert_same(t2.finalize_host(table, k), golden_table(chunks, k, canonical),
+                    golden_table(chunks, k, canonical))
+    want = runs["merge_fold_compact"]
+    assert len(want) >= 2
+    for name, got in runs.items():
+        assert len(got) == len(want), name
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g[0], w[0])
+            np.testing.assert_array_equal(g[1], w[1])
+            assert g[2:] == w[2:], name
+
+
+def test_split_variant_helpers_match_jax(rng):
+    """The torch helpers between the kernels against their XLA originals:
+    the ascending raw sorts with liveness or multiplicities, and the fold
+    onto run heads."""
+    raw = rng.integers(0, 6, (2, 300)).astype(np.uint32)
+    raw[:, 40:50] = 0xFFFFFFFF  # masked windows
+    raw_off = 250
+    port = t2.table_from_numpy(np.zeros((2, 1), np.uint32), np.zeros(1, np.uint32), raw, raw_off, 0, CPU)
+    for port_fn, jax_fn in ((t2._sort_raw_ones, jt2._c3_sort_raw_ones), (t2._sort_raw, jt2._c3_sort_raw)):
+        s, c = port_fn(port.raw_lanes, raw_off)
+        ws, wc = jax_fn(jnp.asarray(raw), jnp.int32(raw_off))
+        np.testing.assert_array_equal(to_numpy(s), np.asarray(ws))
+        np.testing.assert_array_equal(to_numpy(c), np.asarray(wc))
+    counts = rng.integers(0, 2**32, 300, dtype=np.uint64).astype(np.uint32)
+    folded = t2._fold_counts_in_place(s, from_numpy(counts, CPU))
+    want = jt2._fold_counts_in_place(jnp.asarray(to_numpy(s)), jnp.asarray(counts))
+    np.testing.assert_array_equal(to_numpy(folded), np.asarray(want))
