@@ -33,12 +33,17 @@ and prints no result):
                 K1, K2, K3 and K4 bit-exact, and the sort and K5 with
                 bit-exact keys and the same payloads under each key, at
                 NL = 1, 2, 4, 7 and about 8M rows (K1 and the sort also
-                32M), at the edge cases of tests/test_torch_cuda.py and at
-                each launch shape of phases 3-5, on operands shaped as that
-                path gives them (the sort with sort_reduce's outputs equal
-                too); CUDA-event times of kernel, plain version and, where
+                32M), at the edge cases of tests/test_torch_cuda.py (the
+                sort's also on lanes sliced from a wider table, K2's also
+                on rows a word past a 16-byte boundary) and at each launch
+                shape of phases 3-5, on operands shaped as that path gives
+                them (the sort with sort_reduce's outputs equal too);
+                CUDA-event times of kernel, plain version and, where
                 one PyTorch call computes the same function, that call;
-                the least time the card could take (the bound) per shape
+                for the sort and K2, the device time and launches of each
+                of their kernels in one traced call (the sort's merge
+                passes are its merge kernel's launches there); the least
+                time the card could take (the bound) per shape
   7. mid_one  — a one-level run at k=55 forward (4 key lanes): 100k reads x
                 150 bp, several consolidations; byte-identical to NumPy
   8. small    — CLI runs at k=15, 16 (all-T reads), 55 and 101 (canonical)
@@ -53,8 +58,10 @@ and under "paths" each phase's own), and {"ok": true, "device": {...}}.
 With --profile, phases 1 and 2 are followed by, for each table: three
 untraced runs of the main count (wall, engine timers, peak device memory
 of each), one that takes the peak device memory of each table stage, and
-one under torch.profiler: the device's busy share of that run and its
-device time per kernel and copy, largest first.
+one under torch.profiler: the device's busy share of that run, its
+device time per kernel and copy, largest first, and the sort's two
+kernels (leaf and merge pass) apart, with the sort's share of the busy
+time.
 
 The reads, the FASTQ files and the reference counts are made here with
 NumPy; nothing of the JAX package is imported.
@@ -82,6 +89,8 @@ SORT = dict(
     replaces=f"{PALLAS}:204",
     replaces_also=f"{PALLAS}:313",
 )
+# Kernel names of the sort's two kernels in a profiler trace.
+SORT_KERNEL_NAMES = ("leaf_kernel<", "merge_kernel<")
 K2 = dict(name="compact_live", route="cuda", source="kmer_counter_tpu_torch/csrc/compact_live.cu",
           replaces=f"{PALLAS}:1573")
 # K3, K4, K5: variants of K1's kernel template; named as in ops.merge_runs.
@@ -283,6 +292,30 @@ def merge_bound(NL, na, nb):
     row and lane (compares in the split, the merge, run heads and ends)."""
     n = na + nb
     return bound(2 * n * (NL + 1) * 4, 16 * n * (NL + 1))
+
+
+def traced_kernels(fn):
+    """Device time and launches of each kernel in one call of fn, by
+    torch.profiler: {kernel name: {"ms": ..., "launches": ...}}."""
+    import torch
+    from torch.autograd import DeviceType
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        # A trace can miss its first kernel: launch one first that is not
+        # counted (ATen's spin_kernel).
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not any(x in e.name for x in ("Memcpy", "Memset",
+                                                                               "spin_kernel")):
+            name = e.name.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
+            k = out.setdefault(name[:80], {"ms": 0.0, "launches": 0})
+            k["ms"] += (e.time_range.end - e.time_range.start) / 1e3
+            k["launches"] += 1
+    return out
 
 
 def timing(err, ms, plain_ms, bound_ms_by, library_ms=None):
@@ -566,20 +599,15 @@ def compare_sort(cases, keys, payload, time_it, reduce_too=False):
     library = library_sort(keys, payload) if NL <= 2 else None
     ms, plain_ms, library_ms = in_turns(lambda: ls.sort_ops(keys, payload),
                                         lambda: ls.sort_ops_reference(keys, payload), library)
-    return timing(err, ms, plain_ms, cost, library_ms)
+    kernels = traced_kernels(lambda: ls.sort_ops(keys, payload))
+    passes = sum(k["launches"] for name, k in kernels.items() if SORT_KERNEL_NAMES[1] in name)
+    return {**timing(err, ms, plain_ms, cost, library_ms), "leaf_tile_rows": ls.tile_rows(NL),
+            "merge_passes": passes, "device_kernels": kernels}
 
 
-def phase_sort_kernel(device, cases, shapes_by_path):
-    """The sort kernel vs plain: random operands per NL at ~8M and ~32M
-    rows, the edge cases, and each (NL, n) that a main path launched, on
-    operands shaped as that path gives them (sort_operands_for).  Returns
-    per_path_totals's dict."""
-    import numpy as np
-    import torch
-
-    from kmer_counter_tpu_torch.ops.u32 import from_numpy
-
-    gen = torch.Generator(device=device).manual_seed(SEED)
+def sort_random_shapes(device, cases, gen):
+    """The sort kernel vs plain on random operands per NL at ~8M and ~32M
+    rows, timed.  Returns the largest key error."""
     max_err = 0
     for NL in (1, 2, 4, 7):
         for n in KERNEL_ROWS:
@@ -589,12 +617,30 @@ def phase_sort_kernel(device, cases, shapes_by_path):
             log({"phase": "kernel", "kernel": SORT["name"], "NL": NL, "n": n, "keys_bit_exact": True,
                  "payloads_conserved": True, **t})
             del keys, counts
+    return max_err
+
+
+def phase_sort_kernel(device, cases, shapes_by_path):
+    """The sort kernel vs plain: sort_random_shapes, the edge cases (also
+    on lanes that are column slices starting past a 16-byte boundary), and
+    each (NL, n) that a main path launched, on operands shaped as that path
+    gives them (sort_operands_for).  Returns per_path_totals's dict."""
+    import numpy as np
+    import torch
+
+    from kmer_counter_tpu_torch.ops.u32 import from_numpy
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    max_err = sort_random_shapes(device, cases, gen)
     for name, build in sorted(cases.SORT_CASES.items()):
         keys_np, payload_np = build(np.random.default_rng(SEED))
-        t = compare_sort(cases, from_numpy(keys_np, device), from_numpy(payload_np, device),
-                         time_it=False)
-        max_err = max(max_err, t["max_abs_err"])
-        log({"phase": "kernel", "kernel": SORT["name"], "edge_case": name, "keys_bit_exact": True,
+        for layout, (keys, payload) in (
+                ("contiguous", (from_numpy(keys_np, device), from_numpy(payload_np, device))),
+                ("column_slices", cases.column_slices(keys_np, payload_np, device))):
+            t = compare_sort(cases, keys, payload, time_it=False)
+            max_err = max(max_err, t["max_abs_err"])
+        log({"phase": "kernel", "kernel": SORT["name"], "edge_case": name, "n": keys_np.shape[1],
+             "layouts": ["contiguous", "column_slices"], "keys_bit_exact": True,
              "payloads_conserved": True})
 
     def at_shape(path, shape):
@@ -706,7 +752,8 @@ def compare_k2(ops2d, live, num_keys, time_it):
     ms, plain_ms, library_ms = in_turns(lambda: cl.compact_live(ops, live, num_keys),
                                         lambda: cl.compact_live_reference(ops, live, num_keys),
                                         lambda: ops2d[:, live != 0])
-    return timing(err, ms, plain_ms, cost, library_ms)
+    return {**timing(err, ms, plain_ms, cost, library_ms),
+            "device_kernels": traced_kernels(lambda: cl.compact_live(ops, live, num_keys))}
 
 
 def random_k2_operands(n_ops, n, live_rows, gen, device):
@@ -724,17 +771,9 @@ def random_k2_operands(n_ops, n, live_rows, gen, device):
     return ops2d
 
 
-def phase_k2_kernel(device, cases, shapes_by_path):
-    """K2 vs plain: random operands per NL at ~8M rows with about a third
-    live, the edge cases (sizes around the tile, densities 0 to 1, widths 1
-    to 9, flags apart from the operands), and each (n_ops, n, live rows)
-    that a main path launched.  Returns per_path_totals's dict."""
-    import numpy as np
-    import torch
-
-    from kmer_counter_tpu_torch.ops.u32 import from_numpy
-
-    gen = torch.Generator(device=device).manual_seed(SEED)
+def k2_random_shapes(device, gen):
+    """K2 vs plain on random operands per NL at ~8M rows with about a third
+    live, timed.  Returns the largest error."""
     max_err = 0
     for NL in (1, 2, 4, 7):
         n = NEW_KERNEL_ROWS
@@ -744,15 +783,33 @@ def phase_k2_kernel(device, cases, shapes_by_path):
         log({"phase": "kernel", "kernel": K2["name"], "n_ops": NL + 1, "n": n, "live_rows": n // 3,
              "bit_exact": True, **t})
         del ops2d
-    for n in (0, 1, 31, 4095, 4096, 4097, 1_000_003):
+    return max_err
+
+
+def phase_k2_kernel(device, cases, shapes_by_path):
+    """K2 vs plain: k2_random_shapes, the edge cases (sizes around the
+    tile, densities 0 to 1, widths 1 to 9, flags apart from the operands),
+    and each (n_ops, n, live rows) that a main path launched.  Returns
+    per_path_totals's dict."""
+    import numpy as np
+    import torch
+
+    from kmer_counter_tpu_torch.ops.u32 import from_numpy
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    max_err = k2_random_shapes(device, gen)
+    for n in cases.COMPACT_SIZES:
         for density in (0.0, 0.5, 0.97, 1.0):
             for n_ops, num_keys in ((3, 2), (1, 1), (9, 8), (3, 0)):
                 ops, live = cases.compact_case(np.random.default_rng(n), n_ops - 1, n, density)
-                ops2d = from_numpy(np.stack(ops), device)
-                for flags in (from_numpy(live, device), ops2d[-1]):
-                    max_err = max(max_err, compare_k2(ops2d, flags, num_keys, False)["max_abs_err"])
-    log({"phase": "kernel", "kernel": K2["name"], "edge_cases": "sizes x densities x widths",
-         "bit_exact": True})
+                # the rows at 0 and 1 words past a 16-byte boundary
+                for start in (0, 1):
+                    rows = from_numpy(np.pad(np.stack([*ops, live]), ((0, 0), (start, 0))), device)
+                    ops2d = rows[:-1, start:]
+                    for flags in (rows[-1, start:], ops2d[-1]):
+                        max_err = max(max_err, compare_k2(ops2d, flags, num_keys, False)["max_abs_err"])
+    log({"phase": "kernel", "kernel": K2["name"], "edge_cases": "sizes x densities x widths x alignments",
+         "sizes": cases.COMPACT_SIZES, "bit_exact": True})
 
     def at_shape(path, shape):
         n_ops, n, live_rows = shape
@@ -1057,9 +1114,17 @@ def phase_profile(device, tmp, untraced=3, top=15):
                 busy_us += end - max(start, reach)
                 reach = end
         busy_s = busy_us / 1e6
+        # The sort's two kernels (leaf and merge pass), each beside its share.
+        sort_us = {name: us for name, us in per_name.items()
+                   if any(k in name for k in SORT_KERNEL_NAMES)}
         log({"phase": "profile", "table_impl": impl, "traced": True, "wall_s": stats.wall_seconds,
              "timers_s": stats.metrics["timers_s"], "device_busy_s": busy_s,
-             "device_busy_share": busy_s / stats.wall_seconds, "device_events": len(spans)})
+             "device_busy_share": busy_s / stats.wall_seconds, "device_events": len(spans),
+             "sort_device_ms": sum(sort_us.values()) / 1e3,
+             "sort_share_of_busy": sum(sort_us.values()) / busy_us})
+        for name, us in sorted(sort_us.items()):
+            log({"phase": "profile", "table_impl": impl, "sort_kernel": True, "device_ms": us / 1e3,
+                 "name": name[:120]})
         for name, us in per_name.most_common(top):
             log({"phase": "profile", "table_impl": impl, "device_ms": us / 1e3, "name": name[:120]})
 

@@ -1,7 +1,7 @@
 // lanes.cuh — what the package's kernels share: rows of NL uint32 key lanes
 // plus one uint32 value lane (a count or a payload), held as one device
 // array per lane, and the merge-path split that merges two sorted runs of
-// such rows.  Included by merge_fold_compact.cu and lane_sort.cu.
+// such rows.  Included by every source of csrc/.
 #pragma once
 
 #include <cstdint>
@@ -57,6 +57,16 @@ __device__ __forceinline__ Index merge_path_split(Index d, Index la, Index lb, L
     }
   }
   return lo;
+}
+
+// The rows (4-byte words) from p up to its first 16-byte boundary, at most
+// len: where a lane's 16-byte accesses can start.  A lane may start at any
+// word (a column slice of a wider table), so every 16-byte access to it has
+// a head of up to 3 rows moved one word at a time.
+template <class Index>
+__device__ __forceinline__ Index head_rows(const void* p, Index len) {
+  const Index h = (Index)(((16u - ((unsigned)(uintptr_t)p & 15u)) & 15u) >> 2);
+  return h < len ? h : len;
 }
 
 inline Ops make_ops(const void* const* ptrs, int n_ops) {

@@ -29,8 +29,9 @@ from kmer_counter_tpu_torch.cuda_build import ptr_array
 from kmer_counter_tpu_torch.ops.u32 import SENTINEL
 
 MAX_OPS = 9
-# Kernel launches through ``compact_live`` (one per call on a non-empty
-# CUDA tensor; the plain version does not count).
+# Calls of ``compact_live`` that launched the kernels (compact and fill,
+# counted once per call on a non-empty CUDA tensor; the plain version does
+# not count).
 launches = 0
 
 
@@ -85,8 +86,8 @@ def _lib() -> ctypes.CDLL:
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         ptrs = ctypes.POINTER(ctypes.c_void_p)
         lib.cl_tile_rows.argtypes, lib.cl_tile_rows.restype = [], i
-        lib.cl_count.argtypes, lib.cl_count.restype = [vp, ll, vp, vp], i
-        lib.cl_compact.argtypes = [ptrs, ptrs, i, i, vp, ll, vp, vp, vp]
+        lib.cl_num_tiles.argtypes, lib.cl_num_tiles.restype = [vp, ll], ll
+        lib.cl_compact.argtypes = [ptrs, ptrs, i, i, vp, ll, vp, vp]
         lib.cl_compact.restype = i
         lib._cl_typed = True
     return lib
@@ -97,14 +98,6 @@ def tile_rows() -> int:
     return _lib().cl_tile_rows()
 
 
-def tile_offsets(tile_live: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The scan between the kernel's count and compact passes: from each
-    tile's live-row count (``[T] int64``), each tile's first output row
-    and the live total (0-d)."""
-    total = torch.cumsum(tile_live, 0)
-    return total - tile_live, total[-1]
-
-
 def _launch(operands, live, num_keys):
     global launches
     lib = _lib()
@@ -112,17 +105,12 @@ def _launch(operands, live, num_keys):
     if n == 0:
         return _empty_out(len(operands), 0, num_keys, live.device)
     out = torch.empty((len(operands), n), dtype=torch.int32, device=live.device)
-    tiles = -(-n // lib.cl_tile_rows())
-    tile_live = torch.empty(tiles, dtype=torch.int64, device=live.device)
+    # The look-back's status words, one per tile, then the tile ticket: zero.
+    scratch = torch.zeros(lib.cl_num_tiles(live.data_ptr(), n) + 1, dtype=torch.int64, device=live.device)
     stream = torch.cuda.current_stream(live.device).cuda_stream
-    err = lib.cl_count(live.data_ptr(), n, tile_live.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"compact_live count launch failed: cudaError {err}")
-    tile_off, live_total = tile_offsets(tile_live)
     err = lib.cl_compact(ptr_array(operands), ptr_array(list(out.unbind(0))), len(operands),
-                         num_keys, live.data_ptr(), n, tile_off.data_ptr(), live_total.data_ptr(),
-                         stream)
+                         num_keys, live.data_ptr(), n, scratch.data_ptr(), stream)
     if err:
-        raise RuntimeError(f"compact_live compact launch failed: cudaError {err}")
+        raise RuntimeError(f"compact_live launch failed: cudaError {err}")
     launches += 1
     return out

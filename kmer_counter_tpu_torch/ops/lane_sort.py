@@ -72,41 +72,42 @@ def _lib() -> ctypes.CDLL:
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         ptrs = ctypes.POINTER(ctypes.c_void_p)
         lib.ls_tile_rows.argtypes, lib.ls_tile_rows.restype = [i], i
-        lib.ls_leaf_sort.argtypes, lib.ls_leaf_sort.restype = [ptrs, ptrs, i, ll, vp], i
-        lib.ls_merge_pass.argtypes = [ptrs, ptrs, i, ll, ll, vp, vp]
-        lib.ls_merge_pass.restype = i
+        lib.ls_merge_passes.argtypes, lib.ls_merge_passes.restype = [i, ll], i
+        lib.ls_sort.argtypes, lib.ls_sort.restype = [ptrs, ptrs, ptrs, i, ll, vp], i
         lib._ls_typed = True
     return lib
 
 
 def tile_rows(num_keys: int) -> int:
-    """Rows per leaf tile and merge tile at ``num_keys`` key lanes (builds
-    the kernel if needed)."""
+    """Rows per leaf tile at ``num_keys`` key lanes (builds the kernel if
+    needed)."""
     return _lib().ls_tile_rows(num_keys)
 
 
+def merge_passes(num_keys: int, n: int) -> int:
+    """Merge passes (one launch each, after the leaf's) that the kernel
+    makes for n rows at ``num_keys`` key lanes: runs of one leaf tile, two,
+    ... until one run holds all n (builds the kernel if needed)."""
+    return _lib().ls_merge_passes(num_keys, n)
+
+
 def _launch(keys: torch.Tensor, payload: torch.Tensor):
-    """leaf_sort into one of two ping-pong buffers, then merge passes
-    (runs of tile, 2·tile, ... rows) until one run holds all n rows."""
+    """One call of ls_sort: the leaf and every merge pass, enqueued on the
+    current stream, between two ping-pong buffers (one when n fits a leaf
+    tile)."""
     global launches
     lib = _lib()
     NL, n = keys.shape
-    bufs = [torch.empty((NL + 1, n), dtype=torch.int32, device=keys.device) for _ in range(2)]
+    bufs = [torch.empty((NL + 1, n), dtype=torch.int32, device=keys.device)]
     if n == 0:
         return bufs[0][:NL], bufs[0][NL]
-    tile = lib.ls_tile_rows(NL)
-    stream = torch.cuda.current_stream(keys.device).cuda_stream
+    if lib.ls_merge_passes(NL, n):
+        bufs.append(torch.empty_like(bufs[0]))
     buf_ptrs = [ptr_array(list(b.unbind(0))) for b in bufs]
-    err = lib.ls_leaf_sort(ptr_array([*keys.unbind(0), payload]), buf_ptrs[0], NL, n, stream)
-    if err:
-        raise RuntimeError(f"lane_sort leaf launch failed: cudaError {err}")
+    stream = torch.cuda.current_stream(keys.device).cuda_stream
+    cur = lib.ls_sort(ptr_array([*keys.unbind(0), payload]), buf_ptrs[0], buf_ptrs[-1], NL, n, stream)
+    if cur < 0:
+        raise RuntimeError(f"lane_sort launch failed: cudaError {-cur}")
     launches += 1
-    splits = torch.empty(-(-n // tile), dtype=torch.int64, device=keys.device)
-    cur, run = 0, tile
-    while run < n:
-        err = lib.ls_merge_pass(buf_ptrs[cur], buf_ptrs[1 - cur], NL, n, run, splits.data_ptr(), stream)
-        if err:
-            raise RuntimeError(f"lane_sort merge pass launch failed: cudaError {err}")
-        cur, run = 1 - cur, 2 * run
     out = bufs[cur]
     return out[:NL], out[NL]

@@ -5,9 +5,13 @@ most 3 tiles); the port runs on CPU tensors, so its wrapper takes the plain
 version.  Every output row must match bit for bit, fill included.
 
 The CUDA kernel runs only on the card (tests/test_torch_cuda.py,
-chip_smoke.py).  Its cross-tile logic (per-tile live counts, then
-``tile_offsets``, then per-tile compaction) is checked here in numpy.
+chip_smoke.py).  Its cross-tile protocol (a chained scan with decoupled
+look-back: tickets, aggregate and inclusive-prefix status words, the
+look-back over them, then the fill from the live total) is modelled here
+in numpy, with the tiles completing in order and in a shuffled order.
 """
+
+from collections import Counter
 
 import jax.numpy as jnp
 import numpy as np
@@ -62,31 +66,103 @@ def test_live_may_be_an_operand_and_num_keys_any():
         np.testing.assert_array_equal(_port(ops, ops[-1], num_keys), _numpy(ops, ops[-1], num_keys))
 
 
-def _emulate_kernel(ops, live, T):
-    """The CUDA kernel's passes in numpy for a tile of T rows: per-tile live
-    counts, cl.tile_offsets, then each tile's live rows in order at its
-    offset and its share of the fill."""
-    n = len(live)
-    tiles = -(-n // T)
-    tile_live = np.array([np.count_nonzero(live[t * T : (t + 1) * T]) for t in range(tiles)], np.int64)
-    tile_off, total = cl.tile_offsets(torch.from_numpy(tile_live))
-    out = np.empty((len(ops), n), np.uint32)
-    for t in range(tiles):
-        pos = int(tile_off[t])
-        for r in range(t * T, min(t * T + T, n)):
-            if live[r]:
-                out[:, pos] = [v[r] for v in ops]
-                pos += 1
-        fill = range(max(t * T, int(total)), min(t * T + T, n))
-        out[:, fill] = np.array([M] * 2 + [0] * (len(ops) - 2), np.uint32)[:, None]
-    return out
+AGGREGATE, PREFIX = 1, 2  # status flags of a tile; 0: nothing published yet
+WINDOW = 32  # status words a look-back reads at once (one per lane of a warp)
+
+
+def _tile_block(t, T, shift, ops, live, status, out, stats, window_len):
+    """One block of the CUDA kernel on tile t, as a generator that yields
+    wherever another block may run: it publishes its live count (tile 0
+    its inclusive prefix at once), reads the status words of the
+    window_len tiles before it (words before tile 0 read as a prefix of 0), waits
+    while one nearer than the nearest inclusive prefix has published
+    nothing, adds them up to that prefix, moves window_len tiles back if
+    there is none, publishes its inclusive prefix and places its live rows.  Row
+    r is virtual row r + shift, as the kernel lays its tiles on the flags'
+    16-byte grid."""
+    rows = [v - shift for v in range(max(t * T, shift), min((t + 1) * T, len(live) + shift))]
+    agg = sum(1 for r in rows if live[r])
+    if t > 0:
+        status[t] = (AGGREGATE, agg)
+        yield
+    excl, end = 0, t
+    while end > 0:
+        window = [status[i] if i >= 0 else (PREFIX, 0) for i in range(end - 1, end - 1 - window_len, -1)]
+        stop = next((k for k, (flag, _) in enumerate(window) if flag == PREFIX), window_len)
+        if any(flag == 0 for flag, _ in window[:stop]):
+            stats["spins"] += 1
+            yield
+            continue
+        stats["windows"] += 1
+        excl += sum(value for _, value in window[: stop + 1])
+        if stop < window_len:
+            break
+        end -= window_len
+    status[t] = (PREFIX, excl + agg)
+    yield
+    for r in rows:
+        if live[r]:
+            out[:, excl] = ops[:, r]
+            excl += 1
+
+
+def _emulate_kernel(ops, live, T, resident=1, seed=0, shift=0, num_keys=2, window_len=WINDOW):
+    """The CUDA kernel's protocol in numpy for tiles of T rows: tickets go
+    out in tile order to at most `resident` blocks at once, and a block
+    drawn at random (seeded) takes each next step; with resident=1 the
+    tiles run one after another, in order.  Then the fill writes every row
+    from the last tile's inclusive prefix on.  ``window_len``: the tiles a
+    look-back round reads (the kernel's WINDOW; fewer make long walks
+    common).  Returns (out, stats)."""
+    ops = np.stack(ops)
+    out = np.full_like(ops, 0x5A5A5A5A)  # no row the kernel leaves unwritten
+    tiles = -(-(len(live) + shift) // T)
+    status = [(0, 0)] * tiles
+    stats = Counter()
+    rng = np.random.default_rng(seed)
+    blocks, ticket = [], 0
+    while blocks or ticket < tiles:
+        while len(blocks) < resident and ticket < tiles:
+            blocks.append(_tile_block(ticket, T, shift, ops, live, status, out, stats, window_len))
+            ticket += 1
+        k = int(rng.integers(len(blocks)))
+        try:
+            next(blocks[k])
+        except StopIteration:
+            blocks.pop(k)
+    flag, total = status[-1]
+    assert flag == PREFIX
+    out[:num_keys, total:] = M
+    out[num_keys:, total:] = 0
+    return out, stats
 
 
 @pytest.mark.parametrize("T", [1, 3, 64, 4096])
 @pytest.mark.parametrize("density", [0.0, 0.5, 1.0])
 def test_kernel_tile_logic_matches_plain(T, density):
     ops, live = compact_case(np.random.default_rng(T), 2, 5000, density)
-    np.testing.assert_array_equal(_emulate_kernel(ops, live, T), _port(ops, live, 2))
+    got, stats = _emulate_kernel(ops, live, T)
+    np.testing.assert_array_equal(got, _port(ops, live, 2))
+    assert stats["spins"] == 0  # in order, every look-back finds its predecessor's prefix
+
+
+@pytest.mark.parametrize("T", [1, 3, 64, 4096])
+@pytest.mark.parametrize("density", [0.0, 0.5, 1.0])
+def test_kernel_tile_logic_in_a_shuffled_order_matches_plain(T, density):
+    """300 blocks resident (more than a look-back window), stepped in a
+    seeded random order, on flags 1 to 3 words past a 16-byte boundary;
+    then with look-back rounds of 4 tiles, so that walks over several
+    rounds are common."""
+    ops, live = compact_case(np.random.default_rng(T), 2, 5000, density)
+    want = _port(ops, live, 2)
+    for window_len in (WINDOW, 4):
+        got, stats = _emulate_kernel(ops, live, T, resident=300, seed=T, shift=1 + T % 3,
+                                     window_len=window_len)
+        np.testing.assert_array_equal(got, want)
+        if T <= 3:  # thousands of tiles: some look-backs met a tile that had published nothing
+            assert stats["spins"] > 0
+    if T <= 3:
+        assert stats["windows"] > -(-5003 // T)  # some walks took more than one round
 
 
 @pytest.mark.parametrize(

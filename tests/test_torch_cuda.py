@@ -25,6 +25,14 @@ import torch
 # tile the JAX package's interpret-mode tests use.
 TILE = 1024
 M = 0xFFFFFFFF
+# Rows per leaf tile of the sort kernel (csrc/lane_sort.cu) at NL = 1..8,
+# and rows per block of the compaction kernel (csrc/compact_live.cu).
+SORT_TILE = {1: 16384, 2: 16384, 3: 8192, 4: 8192, 5: 4096, 6: 4096, 7: 4096, 8: 4096}
+COMPACT_TILE = 8192
+# Sizes of the compaction cases: small, around 4096 rows and around the
+# kernel's tile (the odd ones no multiple of 4).
+COMPACT_SIZES = [0, 1, 31, 4095, 4096, 4097, COMPACT_TILE - 1, COMPACT_TILE, COMPACT_TILE + 1,
+                 2 * COMPACT_TILE + 1, 1_000_003]
 
 
 def _sorted_rows(rows: np.ndarray) -> np.ndarray:
@@ -187,8 +195,9 @@ def _sort_random(rng, NL, n, pool=None):
 
 def _sort_all_ones_across_tile_edges(rng):
     # genuine all-ones keys with nonzero payloads, in clusters that
-    # straddle every tile edge of the kernel (1024 to 4096 rows a tile)
-    NL, n = 2, 3 * 4096 + 5
+    # straddle every multiple of 1024 rows: the leaf's merge rounds, the
+    # merge pass's output tiles and the leaf tiles
+    NL, n = 2, 3 * SORT_TILE[2] + 5
     keys = rng.integers(0, 2**32, (NL, n), dtype=np.uint64).astype(np.uint32)
     keys[:, rng.random(n) < 0.4] = M
     for edge in range(1024, n, 1024):
@@ -210,6 +219,46 @@ SORT_CASES = {
     "payload_is_row_index": lambda rng: _sort_case(_sort_random(rng, 7, 77_777, pool=500)[0],
                                                    np.arange(77_777)),
 }
+
+
+def _sort_ordered(rng, NL, n, order):
+    keys, payload = _sort_random(rng, NL, n)
+    keys = keys[:, np.lexsort(keys[::-1])]
+    return _sort_case(keys if order == "presorted" else keys[:, ::-1], payload)
+
+
+# At the leaf tile's edges (NL = 2 and 7), and at 4 leaf tiles + 1 rows,
+# which takes three merge passes (an odd count: the result lies in the
+# second buffer), on random, presorted, reversed, all-equal and all-ones keys.
+_T2, _T7 = SORT_TILE[2], SORT_TILE[7]
+_ODD = 4 * _T2 + 1
+SORT_CASES.update({
+    "leaf_tile_minus_1": lambda rng: _sort_random(rng, 2, _T2 - 1),
+    "leaf_tile": lambda rng: _sort_random(rng, 2, _T2),
+    "leaf_tile_plus_1": lambda rng: _sort_random(rng, 2, _T2 + 1),
+    "two_leaf_tiles_plus_1": lambda rng: _sort_random(rng, 2, 2 * _T2 + 1),
+    "two_leaf_tiles_plus_1_nl7": lambda rng: _sort_random(rng, 7, 2 * _T7 + 1),
+    "odd_passes_random": lambda rng: _sort_random(rng, 2, _ODD),
+    "odd_passes_presorted": lambda rng: _sort_ordered(rng, 2, _ODD, "presorted"),
+    "odd_passes_reversed": lambda rng: _sort_ordered(rng, 2, _ODD, "reversed"),
+    "odd_passes_all_equal": lambda rng: _sort_case(np.full((2, _ODD), 7), np.arange(_ODD)),
+    "odd_passes_all_ones": lambda rng: _sort_case(np.full((2, _ODD), M), np.arange(1, _ODD + 1)),
+})
+
+
+def column_slices(keys, payload, device, start=1):
+    """(keys, payload) numpy rows → int32 tensors that are column slices
+    of a wider table starting `start` columns in: with start % 4 != 0 no
+    lane starts on a 16-byte boundary."""
+    from kmer_counter_tpu_torch.ops.u32 import from_numpy
+
+    NL, n = keys.shape
+    width = -(-(n + start) // 4) * 4 + 4  # a multiple of 4: every lane starts `start` words in
+    table = np.zeros((NL + 1, width), np.uint32)
+    table[:NL, start : start + n] = keys
+    table[NL, start : start + n] = payload
+    t = from_numpy(table, device)
+    return t[:NL, start : start + n], t[NL, start : start + n]
 
 
 def sort_outputs_agree(got, want) -> bool:
@@ -364,15 +413,32 @@ def _compact_vs_plain(ops, live, num_keys, device):
 def test_compact_tile_rows(cuda):
     from kmer_counter_tpu_torch.ops import compact_live as cl
 
-    assert cl.tile_rows() == 4096
+    assert cl.tile_rows() == COMPACT_TILE
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("density", [0.0, 0.5, 0.97, 1.0])
-@pytest.mark.parametrize("n", [0, 1, 31, 4095, 4096, 4097, 1_000_003])
+@pytest.mark.parametrize("n", COMPACT_SIZES)
 def test_compact_kernel(cuda, density, n):
     ops, live = compact_case(np.random.default_rng(n), 2, n, density)
     _compact_vs_plain(ops, live, 2, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("density", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("start", [1, 2, 3])
+@pytest.mark.parametrize("n", [COMPACT_TILE - 2, 3 * COMPACT_TILE + 5])
+def test_compact_kernel_on_unaligned_lanes(cuda, density, start, n):
+    # the flags and the operands start past a 16-byte boundary (the tiles
+    # then lie across the flags' own 16-byte grid), and the live total is
+    # no multiple of 4
+    from kmer_counter_tpu_torch.ops import compact_live as cl
+    from kmer_counter_tpu_torch.ops.u32 import from_numpy
+
+    ops, live = compact_case(np.random.default_rng(start), 2, n, density)
+    rows = from_numpy(np.pad(np.stack([*ops, live]), ((0, 0), (start, 3))), cuda)[:, start : start + n]
+    got = cl.compact_live(list(rows[:-1]), rows[-1], 2)
+    assert torch.equal(got, cl.compact_live_reference(list(rows[:-1]), rows[-1], 2))
 
 
 @pytest.mark.gpu
@@ -435,7 +501,7 @@ def _sort_vs_plain(case, device):
 def test_sort_tile_rows(cuda):
     from kmer_counter_tpu_torch.ops import lane_sort as ls
 
-    assert [ls.tile_rows(NL) for NL in range(1, 9)] == [4096, 2048, 2048] + [1024] * 5
+    assert [ls.tile_rows(NL) for NL in range(1, 9)] == [SORT_TILE[NL] for NL in range(1, 9)]
     assert ls.tile_rows(9) == 0
 
 
@@ -467,21 +533,55 @@ def test_sort_failed_launch_raises_and_never_falls_back(cuda, monkeypatch):
     keys = torch.zeros((2, 10), dtype=torch.int32, device=cuda)
     lib = ls._lib()
     bad = ptr_array([keys[0], keys[1], keys[0]])
-    assert lib.ls_leaf_sort(bad, bad, 9, 10, torch.cuda.current_stream().cuda_stream) != 0
+    assert lib.ls_sort(bad, bad, bad, 9, 10, torch.cuda.current_stream().cuda_stream) < 0
 
     class Refusing:
         def __getattr__(self, name):
             return getattr(lib, name)
 
         @staticmethod
-        def ls_leaf_sort(*args):
-            return 9  # cudaErrorInvalidConfiguration
+        def ls_sort(*args):
+            return -9  # cudaErrorInvalidConfiguration
 
     monkeypatch.setattr(ls, "_lib", Refusing)
     before = ls.launches
     with pytest.raises(RuntimeError, match="launch failed"):
         ls.sort_ops(keys, keys[0].clone())
     assert ls.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("NL", [1, 2, 5])
+def test_sort_kernel_on_unaligned_column_slices(cuda, NL):
+    from kmer_counter_tpu_torch.ops import lane_sort as ls
+
+    keys, payload = column_slices(*_sort_random(np.random.default_rng(NL), NL, 2 * SORT_TILE[NL] + 3),
+                                  cuda)
+    assert keys.data_ptr() % 16 and payload.data_ptr() % 16
+    got = ls.sort_ops(keys, payload)
+    assert sort_outputs_agree(got, ls.sort_ops_reference(keys.contiguous(), payload.contiguous()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, SORT_TILE[2], SORT_TILE[2] + 1, _ODD])
+def test_sort_is_one_call_of_the_library(cuda, monkeypatch, n):
+    from kmer_counter_tpu_torch.ops import lane_sort as ls
+
+    lib, calls = ls._lib(), []
+
+    class Counting:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        @staticmethod
+        def ls_sort(*args):
+            calls.append(args[4])
+            return lib.ls_sort(*args)
+
+    monkeypatch.setattr(ls, "_lib", Counting)
+    _sort_vs_plain(_sort_random(np.random.default_rng(n), 2, n), cuda)
+    assert calls == [n]
+    assert ls.merge_passes(2, n) == {1: 0, SORT_TILE[2]: 0, SORT_TILE[2] + 1: 1, _ODD: 3}[n]
 
 
 @pytest.mark.gpu
