@@ -15,8 +15,9 @@ and prints no result):
                 canonical, gpuMemoryLimit=8e9, with the two-level table;
                 the launch counts of K1 (merge_fold_compact) and of the sort
                 (lane_sort, at finalize) in that run and their launch
-                shapes; the dump is byte-identical to an independent NumPy
-                count
+                shapes (for K1 and the merges also the live rows of A and B
+                and B's live rows with the sentinel key); the dump is
+                byte-identical to an independent NumPy count
   4. main_one — the same count with tableImpl=one: every consolidation is a
                 sort_reduce through the sort kernel; its launch count and
                 shapes; the dump is byte-identical to the same NumPy count
@@ -32,18 +33,21 @@ and prints no result):
   6. kernel   — each kernel against its plain torch version on the card:
                 K1, K2, K3 and K4 bit-exact, and the sort and K5 with
                 bit-exact keys and the same payloads under each key, at
-                NL = 1, 2, 4, 7 and about 8M rows (K1 and the sort also
+                NL = 1, 2, 4, 7 and about 8M rows (K1, K3 and the sort also
                 32M), at the edge cases of tests/test_torch_cuda.py (the
-                sort's also on lanes sliced from a wider table, K2's also
-                on rows a word past a 16-byte boundary) and at each launch
-                shape of phases 3-5, on operands shaped as that path gives
-                them (the sort with sort_reduce's outputs equal too);
-                CUDA-event times of kernel, plain version and, where
-                one PyTorch call computes the same function, that call;
-                for the sort and K2, the device time and launches of each
-                of their kernels in one traced call (the sort's merge
-                passes are its merge kernel's launches there); the least
-                time the card could take (the bound) per shape
+                merges also at the K1/K3 kernel's tile, the sort's also on
+                lanes sliced from a wider table, K2's also on rows a word
+                past a 16-byte boundary) and at each launch shape of phases
+                3-5, on operands shaped as that path gives them (the
+                prefix's live rows and the raw region's liveness as the path
+                had them; K1 and the merges also on operands of the same
+                size with an 80%-live prefix, as earlier runs timed them;
+                the sort with sort_reduce's outputs equal too); CUDA-event
+                times of kernel, plain version and, where one PyTorch call
+                computes the same function, that call; the device time and
+                launches of each CUDA kernel in one traced call (the sort's
+                merge passes are its merge kernel's launches there); the
+                least time the card could take (the bound) per shape
   7. mid_one  — a one-level run at k=55 forward (4 key lanes): 100k reads x
                 150 bp, several consolidations; byte-identical to NumPy
   8. small    — CLI runs at k=15, 16 (all-T reads), 55 and 101 (canonical)
@@ -53,15 +57,17 @@ and prints no result):
 
 The last three lines: the card's name and power limit, one JSON object
 describing each kernel (its launches and times summed over phases 3-5,
-and under "paths" each phase's own), and {"ok": true, "device": {...}}.
+under "paths" each phase's own, and under "device_kernels" its CUDA
+kernels' traced device time and launches at its largest launch shape),
+and {"ok": true, "device": {...}}.
 
 With --profile, phases 1 and 2 are followed by, for each table: three
 untraced runs of the main count (wall, engine timers, peak device memory
 of each), one that takes the peak device memory of each table stage, and
 one under torch.profiler: the device's busy share of that run, its
-device time per kernel and copy, largest first, and the sort's two
-kernels (leaf and merge pass) apart, with the sort's share of the busy
-time.
+device time per kernel and copy, largest first, the sort's two kernels
+(leaf and merge pass) apart, with the sort's share of the busy time, and
+K1's two kernels (merge pass and fill) with their launches.
 
 The reads, the FASTQ files and the reference counts are made here with
 NumPy; nothing of the JAX package is imported.
@@ -89,11 +95,14 @@ SORT = dict(
     replaces=f"{PALLAS}:204",
     replaces_also=f"{PALLAS}:313",
 )
-# Kernel names of the sort's two kernels in a profiler trace.
+# Kernel names of the sort's two kernels and of K1's two (the one-pass
+# merge and its fill; K2's fill kernel is no template) in a profiler trace.
 SORT_KERNEL_NAMES = ("leaf_kernel<", "merge_kernel<")
+K1_KERNEL_NAMES = ("fold_kernel<", "fill_kernel<")
 K2 = dict(name="compact_live", route="cuda", source="kmer_counter_tpu_torch/csrc/compact_live.cu",
           replaces=f"{PALLAS}:1573")
-# K3, K4, K5: variants of K1's kernel template; named as in ops.merge_runs.
+# K3, K4, K5: in K1's source (K3 runs K1's one-pass kernel, K4 and K5 the
+# split, stats and write passes); named as in ops.merge_runs.
 MERGES = {
     "merge_sorted_runs_fold_bitonic": dict(name="merge_sorted_runs_fold_bitonic", route="cuda",
                                            source=MFC_CU, replaces=f"{PALLAS}:1271"),
@@ -104,8 +113,11 @@ MERGES = {
 }
 MAIN_K, MAIN_L, MAIN_READS, MAIN_FILES, MAIN_GENOME = 31, 100, 2_000_000, 4, 4_600_000
 MEMORY_LIMIT = 8_000_000_000
-KERNEL_ROWS = (8 << 20, 32 << 20)  # the kernel phase's random operand sizes (K1, the sort)
-NEW_KERNEL_ROWS = 8 << 20  # the same for K2-K5
+KERNEL_ROWS = (8 << 20, 32 << 20)  # the kernel phase's random operand sizes (K1, K3, the sort)
+NEW_KERNEL_ROWS = 8 << 20  # the same for K2, K4, K5
+# The merges that fold (their bound counts only the rows that are not the
+# sentinel as read; K5's sentinel rows carry payloads).
+FOLDING = ("merge_fold_compact", "merge_sorted_runs_fold_bitonic", "merge_sorted_runs_fold")
 # The card's peaks for the bound (the least time the card could take): the
 # H100 SXM data sheet's device-memory rate, and its float32 rate outside the
 # tensor cores taken for 32-bit integer operations (both at a 700 W limit).
@@ -287,11 +299,33 @@ def bound(nbytes, ops):
 
 
 def merge_bound(NL, na, nb):
-    """A merge of two runs (K1, K3, K4, K5): each row of A and B read once,
-    each output row written once; at most 16 integer operations a merged
-    row and lane (compares in the split, the merge, run heads and ends)."""
+    """A merge of two runs (K5; for K1, K3, K4 the bound of earlier runs):
+    each row of A and B read once, each output row written once; at most 16
+    integer operations a merged row and lane (compares in the split, the
+    merge, run heads and ends)."""
     n = na + nb
     return bound(2 * n * (NL + 1) * 4, 16 * n * (NL + 1))
+
+
+def fold_bound(a_ops, b_ops, NL):
+    """A merge that folds (K1, K3, K4), counting what these operands need:
+    their rows that are not the sentinel read once (the sentinel rows, the
+    largest keys, come last and fold to nothing, whatever their counts),
+    every output row written once, and 16 integer operations a row and lane
+    merged."""
+    import torch
+
+    read = sum(int((torch.stack(list(side[:NL])) != -1).any(0).sum()) for side in (a_ops, b_ops))
+    n = a_ops[0].numel() + b_ops[0].numel()
+    return bound((read + n) * (NL + 1) * 4, 16 * read * (NL + 1))
+
+
+def bounds_of(kernel, a_ops, b_ops, NL):
+    """(bound for the line, the every-row bound of earlier runs or None)."""
+    every_row = merge_bound(NL, a_ops[0].numel(), b_ops[0].numel())
+    if kernel not in FOLDING:
+        return every_row, None
+    return fold_bound(a_ops, b_ops, NL), every_row[0]
 
 
 def traced_kernels(fn):
@@ -318,10 +352,14 @@ def traced_kernels(fn):
     return out
 
 
-def timing(err, ms, plain_ms, bound_ms_by, library_ms=None):
-    """One shape's numbers; bound_ms_by is bound()'s pair."""
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms_by[0],
-            "bound_by": bound_ms_by[1], "library_ms": library_ms}
+def timing(err, ms, plain_ms, bound_ms_by, library_ms=None, every_row_bound_ms=None):
+    """One shape's numbers; bound_ms_by is bound()'s pair; every_row_bound_ms
+    (the folding merges) the bound that reads every input row."""
+    t = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms_by[0],
+         "bound_by": bound_ms_by[1], "library_ms": library_ms}
+    if every_row_bound_ms is not None:
+        t["every_row_bound_ms"] = every_row_bound_ms
+    return t
 
 
 def packed_key(keys):
@@ -355,16 +393,17 @@ def _ri(gen, device):
     return ri
 
 
-def random_prefix(keys, na, gen, device):
-    """A prefix of na rows from a key pool [NL, pool]: 80% live, sorted,
-    counts 1..5 (2% near 2^32), then sentinel rows with count 0."""
+def random_prefix(keys, na, gen, device, live_a=None):
+    """A prefix of na rows from a key pool [NL, pool]: live_a live rows (80%
+    by default), sorted, counts 1..5 (2% near 2^32), then sentinel rows with
+    count 0."""
     import torch
 
     from kmer_counter_tpu_torch.ops.sortcount import lex_argsort
 
     ri = _ri(gen, device)
     NL, pool = keys.shape
-    n_live_a = int(na * 0.8)
+    n_live_a = int(na * 0.8) if live_a is None else live_a
     a = keys[:, ri(0, pool, (n_live_a,))]
     a = a[:, lex_argsort(a)]
     ac = ri(1, 6, (n_live_a,)).to(torch.int32)
@@ -378,27 +417,42 @@ def random_prefix(keys, na, gen, device):
 def key_pool(NL, n, gen, device):
     import torch
 
-    keys = _ri(gen, device)(-(2**31), 2**31, (NL, max(n // 3, 4))).to(torch.int32)
+    keys = _ri(gen, device)(-(2**31), 2**31, (NL, max(n, 4))).to(torch.int32)
     keys[:, 0] = 0
     return keys
 
 
-def random_k1_operands(NL, na, nb, gen, device):
-    """Consolidation-shaped K1 operands made on the card: A = sorted prefix
-    rows (counts 1..5, 2% near 2^32) with a sentinel tail; B = raw rows
-    drawn with repeats from the same key pool, 5% masked windows
-    (sentinel, live), 10% dead rows (zero key, liveness 0), stored
+def operand_mix(NL, na, nb, path=None):
+    """(key pool size, A's live rows, B's live rows, B's masked windows):
+    the 80%-live random mix of earlier runs (a pool of a third of the rows,
+    10% of B dead, 5% masked), or, with path = (live_a, live_b, masked_b)
+    from a main path's launch, that path's: its prefix's live rows, its raw
+    region's liveness and masked windows, from a pool as large as the
+    prefix's live rows (or a twentieth of the raw rows, about the coverage
+    of the main count)."""
+    if path is None:
+        return max((na + nb) // 3, 4), int(na * 0.8), nb - int(nb * 0.1), int(nb * 0.05)
+    live_a, live_b, masked_b = path
+    return max(live_a, live_b // 20, 4), live_a, live_b, masked_b
+
+
+def random_k1_operands(NL, na, nb, gen, device, path=None):
+    """Consolidation-shaped K1 operands made on the card (operand_mix): A =
+    sorted prefix rows (counts 1..5, 2% near 2^32) with a sentinel tail; B =
+    raw rows drawn with repeats from the same key pool, masked windows
+    (sentinel, live) and dead rows (zero key, liveness 0), stored
     descending."""
     import torch
 
     from kmer_counter_tpu_torch.ops.sortcount import lex_argsort
 
-    keys = key_pool(NL, na + nb, gen, device)
-    a_ops = random_prefix(keys, na, gen, device)
+    pool, live_a, live_b, masked_b = operand_mix(NL, na, nb, path)
+    keys = key_pool(NL, pool, gen, device)
+    a_ops = random_prefix(keys, na, gen, device, live_a)
     b = keys[:, _ri(gen, device)(0, keys.shape[1], (nb,))]
-    b[:, : int(nb * 0.05)] = -1
+    b[:, :masked_b] = -1
     b = b[:, lex_argsort(b)]
-    n_dead = int(nb * 0.1)
+    n_dead = nb - live_b
     b[:, :n_dead] = 0
     live = torch.ones(nb, dtype=torch.int32, device=device)
     live[:n_dead] = 0
@@ -406,22 +460,22 @@ def random_k1_operands(NL, na, nb, gen, device):
     return a_ops, [*b.unbind(0), live]
 
 
-def random_merge_operands(kernel, NL, na, nb, gen, device):
+def random_merge_operands(kernel, NL, na, nb, gen, device, path=None):
     """The operands of a split consolidation's merge kernel, made on the
-    card as the two-level table gives them: A = a prefix (random_prefix);
-    B = a raw region of nb rows drawn with repeats from the same key pool
-    (90% of it live, 5% of that masked windows), sorted by the table's own
-    helper for that kernel (descending with liveness, ascending with
-    liveness, ascending with run-head multiplicities)."""
+    card as the two-level table gives them (operand_mix): A = a prefix
+    (random_prefix); B = a raw region of nb rows drawn with repeats from the
+    same key pool (its live rows first, masked windows among them), sorted
+    by the table's own helper for that kernel (descending with liveness,
+    ascending with liveness, ascending with run-head multiplicities)."""
     import torch
 
     from kmer_counter_tpu_torch.ops import table2 as t2
 
-    keys = key_pool(NL, na + nb, gen, device)
-    a_ops = random_prefix(keys, na, gen, device)
+    pool, live_a, raw_off, masked_b = operand_mix(NL, na, nb, path)
+    keys = key_pool(NL, pool, gen, device)
+    a_ops = random_prefix(keys, na, gen, device, live_a)
     raw = keys[:, _ri(gen, device)(0, keys.shape[1], (nb,))]
-    raw[:, : int(nb * 0.05)] = -1
-    raw_off = int(nb * 0.9)
+    raw[:, :masked_b] = -1
     raw[:, raw_off:] = 0
     sort = {"merge_sorted_runs_fold_bitonic": t2._sort_raw_desc,
             "merge_sorted_runs_fold": t2._sort_raw_ones, "merge_sorted_runs": t2._sort_raw}[kernel]
@@ -449,22 +503,18 @@ def compare_k1(a_ops, b_ops, NL, time_it):
             f"nb={b_ops[0].numel()} live {int(live)} vs {int(want_live)}, max_abs_err {err}"
         )
     del out, want
-    cost = merge_bound(NL, a_ops[0].numel(), b_ops[0].numel())
+    cost, every_row = bounds_of(K1["name"], a_ops, b_ops, NL)
     if not time_it:
-        return timing(err, None, None, cost)
+        return timing(err, None, None, cost, every_row_bound_ms=every_row)
     ms, plain_ms, _ = in_turns(lambda: mfc.merge_fold_compact(a_ops, b_ops, NL),
                                lambda: mfc.merge_fold_compact_reference(a_ops, b_ops, NL))
-    return timing(err, ms, plain_ms, cost)
+    return {**timing(err, ms, plain_ms, cost, every_row_bound_ms=every_row),
+            "device_kernels": traced_kernels(lambda: mfc.merge_fold_compact(a_ops, b_ops, NL))}
 
 
-def phase_kernel(device, cases, shapes_by_path):
-    """K1 kernel vs plain: random operands per NL at ~8M and ~32M rows, the
-    edge cases, and each (NL, na, nb) that a main path launched.  Returns
-    per_path_totals's dict."""
-    import numpy as np
-    import torch
-
-    gen = torch.Generator(device=device).manual_seed(SEED)
+def k1_random_shapes(device, gen):
+    """K1 vs plain on random operands per NL at ~8M and ~32M rows, timed.
+    Returns the largest error."""
     max_err = 0
     for NL in (1, 2, 4, 7):
         for n in KERNEL_ROWS:
@@ -475,20 +525,42 @@ def phase_kernel(device, cases, shapes_by_path):
             log({"phase": "kernel", "kernel": K1["name"], "NL": NL, "na": na, "nb": n - na,
                  "bit_exact": True, **t})
             del a_ops, b_ops
-    for name, build in sorted(cases.EDGE_CASES.items()):
+    return max_err
+
+
+def k1_at_shape(path, shape, gen, device):
+    """K1 vs plain, timed, at one main-path launch shape (NL, na, nb,
+    live_a, live_b, masked_b): first on operands shaped as the path gave
+    them, then on the 80%-live random mix of the same size.  Returns the
+    path-shaped timing."""
+    NL, na, nb, *live = shape
+    out = None
+    for mix in ("path", "random_80pct_live"):
+        a_ops, b_ops = random_k1_operands(NL, na, nb, gen, device, live if mix == "path" else None)
+        t = compare_k1(a_ops, b_ops, NL, time_it=True)
+        del a_ops, b_ops
+        log({"phase": "kernel", "kernel": K1["name"], "path": path, "main_path_launch_shape": True,
+             "operands": mix, "NL": NL, "na": na, "nb": nb, "live_a": live[0], "live_b": live[1],
+             "masked_b": live[2], "bit_exact": True, **t})
+        out = out or t
+    return out
+
+
+def phase_kernel(device, cases, shapes_by_path):
+    """K1 kernel vs plain: k1_random_shapes, the edge cases (also those of
+    the K1/K3 kernel's tile), and each launch shape of a main path
+    (k1_at_shape).  Returns per_path_totals's dict."""
+    import numpy as np
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    max_err = k1_random_shapes(device, gen)
+    for name, build in sorted({**cases.EDGE_CASES, **cases.FOLD_CASES}.items()):
         a_ops, b_ops, NL = cases.operands(build(np.random.default_rng(SEED)), device)
         max_err = max(max_err, compare_k1(a_ops, b_ops, NL, time_it=False)["max_abs_err"])
         log({"phase": "kernel", "kernel": K1["name"], "edge_case": name, "bit_exact": True})
-
-    def at_shape(path, shape):
-        NL, na, nb = shape
-        a_ops, b_ops = random_k1_operands(NL, na, nb, gen, device)
-        t = compare_k1(a_ops, b_ops, NL, time_it=True)
-        log({"phase": "kernel", "kernel": K1["name"], "path": path, "main_path_launch_shape": True,
-             "NL": NL, "na": na, "nb": nb, "bit_exact": True, **t})
-        return t
-
-    return per_path_totals(shapes_by_path, at_shape, max_err)
+    return per_path_totals(shapes_by_path, lambda path, shape: k1_at_shape(path, shape, gen, device),
+                           max_err)
 
 
 def per_path_totals(shapes_by_path, at_shape, max_err):
@@ -503,6 +575,7 @@ def per_path_totals(shapes_by_path, at_shape, max_err):
 
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     done, paths, by = {}, {}, Counter()
+    largest = None  # the timing of the shape with the largest bound
     for path, shapes in shapes_by_path.items():
         tot = dict.fromkeys(keys, 0.0)
         for shape, count in sorted(Counter(shapes).items()):
@@ -510,6 +583,8 @@ def per_path_totals(shapes_by_path, at_shape, max_err):
                 done[shape] = at_shape(path, shape)
                 torch.cuda.empty_cache()
             t = done[shape]
+            if largest is None or t["bound_ms"] > largest["bound_ms"]:
+                largest = t
             max_err = max(max_err, t["max_abs_err"])
             by[t["bound_by"]] += count * t["bound_ms"]
             for key in keys:
@@ -520,6 +595,8 @@ def per_path_totals(shapes_by_path, at_shape, max_err):
     for key in keys:
         vals = [p[key] for p in paths.values()]
         out[key] = None if None in vals else sum(vals)
+    if largest is not None and "device_kernels" in largest:
+        out["device_kernels"] = largest["device_kernels"]
     return out
 
 
@@ -673,55 +750,75 @@ def compare_merge(cases, kernel, a_ops, b_ops, NL, time_it):
                              f"nb={b_ops[0].numel()}, key max_abs_err {err}")
     bit_exact = torch.equal(got, want)
     del got, want
-    cost = merge_bound(NL, a_ops[0].numel(), b_ops[0].numel())
+    cost, every_row = bounds_of(kernel, a_ops, b_ops, NL)
     if not time_it:
-        return timing(err, None, None, cost), bit_exact
+        return timing(err, None, None, cost, every_row_bound_ms=every_row), bit_exact
     library = None
     if kernel == "merge_sorted_runs" and NL <= 2:
         library = library_sort(torch.cat([torch.stack(a_ops[:NL]), torch.stack(b_ops[:NL])], 1),
                                torch.cat([a_ops[NL], b_ops[NL]]))
     ms, plain_ms, library_ms = in_turns(lambda: fn(a_ops, b_ops, NL), lambda: ref(a_ops, b_ops, NL),
                                         library)
-    return timing(err, ms, plain_ms, cost, library_ms), bit_exact
+    return {**timing(err, ms, plain_ms, cost, library_ms, every_row),
+            "device_kernels": traced_kernels(lambda: fn(a_ops, b_ops, NL))}, bit_exact
 
 
-def phase_merge_kernels(device, cases, shapes_by_kernel):
-    """K3, K4, K5 vs plain: random operands per NL at ~8M rows, the edge
-    cases, and each (NL, na, nb) that a main path launched, on operands
-    shaped as the table gives them (random_merge_operands).  Returns
-    {kernel: per_path_totals's dict}."""
-    import numpy as np
-    import torch
-
-    gen = torch.Generator(device=device).manual_seed(SEED)
-    results = {}
-    for kernel, shapes_by_path in shapes_by_kernel.items():
-        max_err = 0
-        for NL in (1, 2, 4, 7):
-            n = NEW_KERNEL_ROWS
+def merge_random_shapes(device, cases, gen, kernel):
+    """A merge kernel of ops.merge_runs vs plain on random operands per NL
+    at ~8M rows (K3 also ~32M), timed.  Returns the largest key error."""
+    max_err = 0
+    sizes = KERNEL_ROWS if kernel == "merge_sorted_runs_fold_bitonic" else (NEW_KERNEL_ROWS,)
+    for NL in (1, 2, 4, 7):
+        for n in sizes:
             a_ops, b_ops = random_merge_operands(kernel, NL, n // 8, n - n // 8, gen, device)
             t, exact = compare_merge(cases, kernel, a_ops, b_ops, NL, time_it=True)
             max_err = max(max_err, t["max_abs_err"])
             log({"phase": "kernel", "kernel": kernel, "NL": NL, "na": n // 8, "nb": n - n // 8,
                  "agrees": True, "bit_exact": exact, **t})
             del a_ops, b_ops
-        for name, build in sorted(cases.EDGE_CASES.items()):
+    return max_err
+
+
+def merge_at_shape(cases, kernel, path, shape, gen, device):
+    """A merge kernel vs plain, timed, at one main-path launch shape (NL, na,
+    nb, live_a, live_b, masked_b), on operands shaped as the path gave them
+    and then on the 80%-live random mix of the same size.  Returns the
+    path-shaped timing."""
+    NL, na, nb, *live = shape
+    out = None
+    for mix in ("path", "random_80pct_live"):
+        a_ops, b_ops = random_merge_operands(kernel, NL, na, nb, gen, device,
+                                             live if mix == "path" else None)
+        t, exact = compare_merge(cases, kernel, a_ops, b_ops, NL, time_it=True)
+        del a_ops, b_ops
+        log({"phase": "kernel", "kernel": kernel, "path": path, "main_path_launch_shape": True,
+             "operands": mix, "NL": NL, "na": na, "nb": nb, "live_a": live[0], "live_b": live[1],
+             "masked_b": live[2], "agrees": True, "bit_exact": exact, **t})
+        out = out or t
+    return out
+
+
+def phase_merge_kernels(device, cases, shapes_by_kernel):
+    """K3, K4, K5 vs plain: merge_random_shapes, the edge cases (also those
+    of the K1/K3 kernel's tile), and each launch shape of a main path
+    (merge_at_shape).  Returns {kernel: per_path_totals's dict}."""
+    import numpy as np
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    results = {}
+    for kernel, shapes_by_path in shapes_by_kernel.items():
+        max_err = merge_random_shapes(device, cases, gen, kernel)
+        for name, build in sorted({**cases.EDGE_CASES, **cases.FOLD_CASES}.items()):
             case = cases.merge_case_layout(kernel, build(np.random.default_rng(SEED)))
             a_ops, b_ops, NL = cases.operands(case, device)
             t, exact = compare_merge(cases, kernel, a_ops, b_ops, NL, time_it=False)
             max_err = max(max_err, t["max_abs_err"])
             log({"phase": "kernel", "kernel": kernel, "edge_case": name, "agrees": True,
                  "bit_exact": exact})
-
-        def at_shape(path, shape, kernel=kernel):
-            NL, na, nb = shape
-            a_ops, b_ops = random_merge_operands(kernel, NL, na, nb, gen, device)
-            t, exact = compare_merge(cases, kernel, a_ops, b_ops, NL, time_it=True)
-            log({"phase": "kernel", "kernel": kernel, "path": path, "main_path_launch_shape": True,
-                 "NL": NL, "na": na, "nb": nb, "agrees": True, "bit_exact": exact, **t})
-            return t
-
-        results[kernel] = per_path_totals(shapes_by_path, at_shape, max_err)
+        results[kernel] = per_path_totals(
+            shapes_by_path, lambda path, shape, kernel=kernel: merge_at_shape(cases, kernel, path, shape,
+                                                                              gen, device), max_err)
     return results
 
 
@@ -824,7 +921,8 @@ def phase_k2_kernel(device, cases, shapes_by_path):
 
 class LaunchShapes:
     """Records the shape of each call of the kernel wrappers on the table
-    paths: (NL, na, nb) for K1 and the merges, (NL, n) for the sort, and
+    paths: (NL, na, nb, A's live rows, B's live rows, B's live rows with
+    the sentinel key) for K1 and the merges, (NL, n) for the sort, and
     (n_ops, n, live rows) for K2; the kernel phase compares and times the
     kernels at those shapes.  ``variant``: consolidate3's keywords, bound
     to table2.consolidate3 while the context is open."""
@@ -845,8 +943,13 @@ class LaunchShapes:
         self._reals = {(m, name): getattr(m, name) for m, name, _ in self._patches}
 
     def _merge(self, name):
+        import torch
+
         def call(a_ops, b_ops, num_keys):
-            self.shapes[name].append((num_keys, a_ops[0].numel(), b_ops[0].numel()))
+            b_live = b_ops[num_keys] != 0
+            masked = int(((torch.stack(list(b_ops[:num_keys])) == -1).all(0) & b_live).sum())
+            self.shapes[name].append((num_keys, a_ops[0].numel(), b_ops[0].numel(),
+                                      int((a_ops[num_keys] != 0).sum()), int(b_live.sum()), masked))
             return self._reals[(self._table2, name)](a_ops, b_ops, num_keys)
 
         return call
@@ -1114,14 +1217,22 @@ def phase_profile(device, tmp, untraced=3, top=15):
                 busy_us += end - max(start, reach)
                 reach = end
         busy_s = busy_us / 1e6
-        # The sort's two kernels (leaf and merge pass), each beside its share.
+        # The sort's two kernels (leaf and merge pass), each beside its share,
+        # and K1's (fold_kernel of either merge, but only K1 runs on these
+        # paths, and its fill).
         sort_us = {name: us for name, us in per_name.items()
                    if any(k in name for k in SORT_KERNEL_NAMES)}
+        k1_us = {name: us for name, us in per_name.items() if any(k in name for k in K1_KERNEL_NAMES)}
+        k1_launches = Counter(e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+                              and any(k in e.name for k in K1_KERNEL_NAMES))
         log({"phase": "profile", "table_impl": impl, "traced": True, "wall_s": stats.wall_seconds,
              "timers_s": stats.metrics["timers_s"], "device_busy_s": busy_s,
              "device_busy_share": busy_s / stats.wall_seconds, "device_events": len(spans),
              "sort_device_ms": sum(sort_us.values()) / 1e3,
-             "sort_share_of_busy": sum(sort_us.values()) / busy_us})
+             "sort_share_of_busy": sum(sort_us.values()) / busy_us,
+             "k1_device_ms": sum(k1_us.values()) / 1e3,
+             "k1_kernels": {name[:80]: {"device_ms": us / 1e3, "launches": k1_launches[name]}
+                            for name, us in sorted(k1_us.items())}})
         for name, us in sorted(sort_us.items()):
             log({"phase": "profile", "table_impl": impl, "sort_kernel": True, "device_ms": us / 1e3,
                  "name": name[:120]})
@@ -1139,7 +1250,7 @@ def phase_build():
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(3) as pool:
-        for f in [pool.submit(mfc.tile_rows), pool.submit(ls.tile_rows, 1), pool.submit(cl.tile_rows)]:
+        for f in [pool.submit(mfc.tile_rows, 1), pool.submit(ls.tile_rows, 1), pool.submit(cl.tile_rows)]:
             f.result()
     for source in ("merge_fold_compact", "lane_sort", "compact_live"):
         log({"phase": "build", "source": f"csrc/{source}.cu", "nvcc_s": cuda_build.build_seconds[source]})
@@ -1156,7 +1267,8 @@ def kernel_entry(spec, runs, timing):
     return {**spec, "launches": sum(p["launches"] for p in paths.values()),
             **{key: timing[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                             "library_ms")},
-            "paths": paths}
+            "paths": paths, **({"device_kernels": timing["device_kernels"]} if "device_kernels" in timing
+                               else {})}
 
 
 def main():

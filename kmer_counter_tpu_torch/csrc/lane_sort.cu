@@ -67,14 +67,14 @@
 
 namespace {
 
-using lanes::key_le;
-using lanes::merge_path_split;
+using lanes::merge_rows;
 using lanes::num_tiles;
 using lanes::Ops;
 using lanes::OutOps;
-
-__host__ __device__ constexpr int padded(int rows) { return rows + rows / 32; }
-__device__ __forceinline__ int pad(int r) { return r + (r >> 5); }
+using lanes::padded;
+using lanes::store_lane;
+using lanes::store_rows;
+using lanes::Tile;
 
 // Leaf: rows per thread, threads per block.  The block-wide merge rounds
 // wait on shared-memory loads in a chain per thread, so the leaf wants many
@@ -128,21 +128,6 @@ __host__ __device__ constexpr bool merge_shape_fits() {
   return merge_items<NL>() % 4 == 0 &&
          merge_blocks_per_sm<NL>() * (smem_bytes<NL, merge_rows_per_block<NL>()>() + 1024) <= 233472;
 }
-
-// A tile of kT rows in (dynamic) shared memory, laid out as above.
-template <int NL, int kT>
-struct Tile {
-  uint32_t* w;
-  __device__ __forceinline__ uint32_t& at(int l, int r) const { return w[l * padded(kT) + pad(r)]; }
-  // Rows x <= y (lanes.cuh key_le).
-  __device__ __forceinline__ bool le(int x, int y) const {
-#pragma unroll
-    for (int l = 0; l < NL; ++l) {
-      if (at(l, x) != at(l, y)) return at(l, x) < at(l, y);
-    }
-    return true;
-  }
-};
 
 // Rows [0, len) of lane p (device memory) handed to put(row, value), spread
 // over the block: 16-byte loads, kBatch of them in flight per thread, with
@@ -235,34 +220,6 @@ __device__ __forceinline__ void stage_windows(const Ops& in, long long a_row, in
   }
 }
 
-// Rows [0, len) of lane p written from get(row), the same way.
-template <int kThreads, class Get>
-__device__ __forceinline__ void store_lane(uint32_t* p, int len, Get get) {
-  const int head = lanes::head_rows(p, len);
-  const int body = (len - head) >> 2;
-  uint4* v = reinterpret_cast<uint4*>(p + head);
-  for (int i = threadIdx.x; i < body; i += kThreads) {
-    const int r = head + 4 * i;
-    v[i] = make_uint4(get(r), get(r + 1), get(r + 2), get(r + 3));
-  }
-  if (threadIdx.x < 6) {
-    const int r = (int)threadIdx.x < head ? (int)threadIdx.x : (int)threadIdx.x + 4 * body;
-    if (r < len) p[r] = get(r);
-  }
-}
-
-template <int NL, int kT, int kI>
-__device__ __forceinline__ void store_rows(const Tile<NL, kT>& sm, int at, int cnt,
-                                           const uint32_t (&reg)[kI][NL + 1]) {
-#pragma unroll
-  for (int q = 0; q < kI; ++q) {
-    if (q < cnt) {
-#pragma unroll
-      for (int l = 0; l <= NL; ++l) sm.at(l, at + q) = reg[q][l];
-    }
-  }
-}
-
 // x > y over NL lanes, without branches (for rows held in registers).
 template <int NL>
 __device__ __forceinline__ bool reg_gt(const uint32_t* x, const uint32_t* y) {
@@ -296,41 +253,6 @@ __device__ __forceinline__ void sort_in_registers(uint32_t (&x)[kI][NL + 1], int
             x[j][l] = t;
           }
         }
-      }
-    }
-  }
-}
-
-// Output rows [diag, diag+cnt) of the merge of the tile's sorted runs A =
-// rows [a0, a0+la) and B = [b0, b0+lb), A first on ties, into reg.  The
-// keys of the next A row and the next B row wait in registers, so each
-// row's lanes are read from shared memory once.
-template <int NL, int kT, int kI>
-__device__ __forceinline__ void merge_rows(const Tile<NL, kT>& sm, int a0, int la, int b0, int lb,
-                                           int diag, int cnt, uint32_t (&reg)[kI][NL + 1]) {
-  int ia = merge_path_split(diag, la, lb, [&](int i, int j) { return sm.le(a0 + i, b0 + j); });
-  int ib = diag - ia;
-  uint32_t ka[NL], kb[NL];
-#pragma unroll
-  for (int l = 0; l < NL; ++l) {
-    ka[l] = ia < la ? sm.at(l, a0 + ia) : 0u;
-    kb[l] = ib < lb ? sm.at(l, b0 + ib) : 0u;
-  }
-#pragma unroll
-  for (int q = 0; q < kI; ++q) {
-    if (q < cnt) {
-      const bool take_a = ib >= lb || (ia < la && key_le<NL>(ka, kb));
-      reg[q][NL] = sm.at(NL, take_a ? a0 + ia : b0 + ib);
-#pragma unroll
-      for (int l = 0; l < NL; ++l) reg[q][l] = take_a ? ka[l] : kb[l];
-      if (take_a) {
-        if (++ia < la) {
-#pragma unroll
-          for (int l = 0; l < NL; ++l) ka[l] = sm.at(l, a0 + ia);
-        }
-      } else if (++ib < lb) {
-#pragma unroll
-        for (int l = 0; l < NL; ++l) kb[l] = sm.at(l, b0 + ib);
       }
     }
   }

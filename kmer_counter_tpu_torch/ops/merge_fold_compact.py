@@ -99,19 +99,22 @@ def merge_fold_compact_reference(
 
 # ---- the CUDA kernel -------------------------------------------------------
 #
-# csrc/merge_fold_compact.cu is one template over (B descending, fold,
-# compact); ``launch`` runs its passes for one variant.  K1 is used here,
-# the other three by ops.merge_runs.
+# csrc/merge_fold_compact.cu holds two kernels: K1 and K3 run its one-pass
+# fold_kernel (K1 then its fill kernel), K4 and K5 the split, stats and
+# write passes; ``launch`` runs one variant.  K1 is used here, the other
+# three by ops.merge_runs.
 
-# Rows of the kernel's per-tile stats array (enum Stat in the .cu source).
+# Rows of the K4 stats array (enum Stat in the .cu source).
 (TILE_SUM, HAS_END, OPEN_SUM, HAS_OPEN, OPEN_SENT, LIVE_LOCAL, TAIL) = range(7)
 NUM_STATS = 7
-# The template's variants (enum Variant in the .cu source): the Pallas
-# functions they replace are merge_fold_compact_bitonic (K1),
-# merge_sorted_runs_fold_bitonic (K3), merge_sorted_runs_fold (K4) and
-# merge_sorted_runs (K5).
+# The variants (enum Variant in the .cu source): the Pallas functions they
+# replace are merge_fold_compact_bitonic (K1), merge_sorted_runs_fold_bitonic
+# (K3), merge_sorted_runs_fold (K4) and merge_sorted_runs (K5).
 K1, K3, K4, K5 = range(4)
 NUM_VARIANTS = 4
+# The word of fold_kernel's scratch where K1 leaves its live row count
+# (enum Header in the .cu source).
+LIVE_TOTAL_WORD = 3
 
 
 def _lib() -> ctypes.CDLL:
@@ -119,14 +122,18 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_mfc_typed", False):
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         ptrs = ctypes.POINTER(ctypes.c_void_p)
-        lib.mfc_tile_rows.argtypes, lib.mfc_tile_rows.restype = [], i
         lib.mfc_num_stats.argtypes, lib.mfc_num_stats.restype = [], i
         lib.mfc_num_variants.argtypes, lib.mfc_num_variants.restype = [], i
+        lib.mfc_fold_tile_rows.argtypes, lib.mfc_fold_tile_rows.restype = [i], i
+        lib.mfc_fold_scratch_words.argtypes, lib.mfc_fold_scratch_words.restype = [i, ll], ll
+        lib.mfc_fold.argtypes = [ptrs, ptrs, ptrs, i, i, ll, ll, vp, vp]
+        lib.mfc_fold.restype = i
+        lib.mfc_tile_rows.argtypes, lib.mfc_tile_rows.restype = [], i
         lib.mfc_splits.argtypes = [ptrs, ptrs, i, i, ll, ll, vp, vp]
         lib.mfc_splits.restype = i
         lib.mfc_stats.argtypes = [ptrs, ptrs, i, i, ll, ll, vp, vp, vp]
         lib.mfc_stats.restype = i
-        lib.mfc_write.argtypes = [ptrs, ptrs, ptrs, i, i, ll, ll, vp, vp, vp, vp, vp]
+        lib.mfc_write.argtypes = [ptrs, ptrs, ptrs, i, i, ll, ll, vp, vp, vp]
         lib.mfc_write.restype = i
         if lib.mfc_num_stats() != NUM_STATS or lib.mfc_num_variants() != NUM_VARIANTS:
             raise RuntimeError("merge_fold_compact.cu and its wrapper disagree on its layout")
@@ -134,19 +141,20 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def tile_rows() -> int:
-    """Merged rows per CUDA block (builds the kernel if needed)."""
-    return _lib().mfc_tile_rows()
+def tile_rows(num_keys: int) -> int:
+    """Merged rows per tile of K1's and K3's kernel at num_keys key lanes
+    (builds the kernel if needed)."""
+    return _lib().mfc_fold_tile_rows(num_keys)
 
 
 def tile_carry_and_offsets(stats: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per-tile scans between the kernel's stats and compact passes.
+    """Per-tile scans between K4's stats and write passes.
 
     From ``stats [NUM_STATS, T] int64`` (see the .cu source) returns
     (carry ``[T]``: the counts, mod 2^32, that the run open at each
     tile's start accumulated in earlier tiles; out_off ``[T]``: each
-    tile's first output row; live_total: 0-d).  The sequential carry
-    recurrence of the TPU kernel,
+    tile's first row among the live rows; live_total: 0-d).  The sequential
+    carry recurrence of the TPU kernel,
     ``carry[t+1] = tail[t] if has_end[t] else carry[t] + tile_sum[t]``,
     is solved in closed form with a cumsum and a cummax.
     """
@@ -176,9 +184,10 @@ def _launch(a_ops, b_ops, num_keys):
 
 
 def launch(variant: int, a_ops, b_ops, num_keys: int):
-    """Runs the kernel template's passes for ``variant`` on checked CUDA
-    operands: splits, then (fold variants) the per-tile stats and the
-    torch scans, then the write pass.  Returns ``(out [NL+1, na+nb],
+    """Runs the kernel of ``variant`` on checked CUDA operands: K1 and K3
+    the one-pass kernel (K1 then its fill), on a zeroed scratch of status
+    words; K4 and K5 the splits, then (K4) the per-tile stats and the torch
+    scans, then the write pass.  Returns ``(out [NL+1, na+nb],
     live_total)``; live_total is a 0-d int64 tensor for K1, else None."""
     lib = _lib()
     device = a_ops[0].device
@@ -188,27 +197,29 @@ def launch(variant: int, a_ops, b_ops, num_keys: int):
     out = torch.empty((NL + 1, n), dtype=torch.int32, device=device)
     if n == 0:
         return out, (torch.zeros((), dtype=torch.int64, device=device) if variant == K1 else None)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    a_ptrs, b_ptrs, out_ptrs = ptr_array(a_ops), ptr_array(b_ops), ptr_array(list(out.unbind(0)))
+    if variant in (K1, K3):
+        scratch = torch.zeros(lib.mfc_fold_scratch_words(NL, n), dtype=torch.int64, device=device)
+        err = lib.mfc_fold(a_ptrs, b_ptrs, out_ptrs, variant, NL, na, nb, scratch.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"merge_fold_compact launch failed: cudaError {err}")
+        return out, (scratch[LIVE_TOTAL_WORD] if variant == K1 else None)
     tiles = -(-n // lib.mfc_tile_rows())
     splits = torch.empty(tiles + 1, dtype=torch.int64, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    a_ptrs, b_ptrs = ptr_array(a_ops), ptr_array(b_ops)
     err = lib.mfc_splits(a_ptrs, b_ptrs, variant, NL, na, nb, splits.data_ptr(), stream)
     if err:
         raise RuntimeError(f"merge_fold_compact splits launch failed: cudaError {err}")
-    carry = out_off = live_total = None
-    if variant != K5:
+    carry = None
+    if variant == K4:
         stats = torch.empty((NUM_STATS, tiles), dtype=torch.int64, device=device)
         err = lib.mfc_stats(a_ptrs, b_ptrs, variant, NL, na, nb, splits.data_ptr(),
                             stats.data_ptr(), stream)
         if err:
             raise RuntimeError(f"merge_fold_compact stats launch failed: cudaError {err}")
-        carry, out_off, live_total = tile_carry_and_offsets(stats)
-        if variant != K1:
-            out_off = live_total = None
-    err = lib.mfc_write(
-        a_ptrs, b_ptrs, ptr_array(list(out.unbind(0))), variant, NL, na, nb, splits.data_ptr(),
-        *(None if v is None else v.data_ptr() for v in (carry, out_off, live_total)), stream,
-    )
+        carry, _, _ = tile_carry_and_offsets(stats)
+    err = lib.mfc_write(a_ptrs, b_ptrs, out_ptrs, variant, NL, na, nb, splits.data_ptr(),
+                        None if carry is None else carry.data_ptr(), stream)
     if err:
         raise RuntimeError(f"merge_fold_compact write launch failed: cudaError {err}")
-    return out, live_total
+    return out, None

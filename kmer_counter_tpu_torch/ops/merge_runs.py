@@ -2,13 +2,14 @@
 kmer_counter_tpu.ops.pallas_sort.merge_sorted_runs_fold_bitonic,
 merge_sorted_runs_fold and merge_sorted_runs.
 
-Each wrapper launches its variant of the hand-written CUDA kernel template
-in ``csrc/merge_fold_compact.cu`` (ops.merge_fold_compact.launch), which
-replaces the Pallas kernels ``pallas_sort._merge_pair_fold_bitonic_call``,
-``_merge_pair_fold_call`` and ``_merge_pair_call``, for CUDA tensors, and
-runs its plain torch version only for tensors on the CPU.  There is no
-fallback: on any other device, or when the kernel cannot be built or
-launched, it raises.
+Each wrapper launches its variant of the hand-written CUDA kernels in
+``csrc/merge_fold_compact.cu`` (ops.merge_fold_compact.launch: K3 the
+one-pass kernel it shares with K1, K4 and K5 the split, stats and write
+passes), which replace the Pallas kernels
+``pallas_sort._merge_pair_fold_bitonic_call``, ``_merge_pair_fold_call``
+and ``_merge_pair_call``, for CUDA tensors, and runs its plain torch
+version only for tensors on the CPU.  There is no fallback: on any other
+device, or when the kernel cannot be built or launched, it raises.
 
 Contract (both versions): A and B are each NL key lanes + one value lane,
 1-D contiguous int32 tensors holding uint32 bits; A is sorted ascending,

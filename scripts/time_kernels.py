@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
-"""Times the sort (K6+K7) and K2 of one tree of the port on one NVIDIA GPU
-with chip_smoke.py's own kernel-phase code: its random operands per NL
-(the sort at about 8M and 32M rows, K2 at about 8M rows a third live), its
-checks against the plain versions, its CUDA-event timing in turns and its
-traced device time per kernel.  So one chip call can time two commits in
-turns (A, B, B, A):
+"""Times the kernels of one tree of the port on one NVIDIA GPU with
+chip_smoke.py's own kernel-phase code: its random operands per NL (the
+sort, K1 and K3 at about 8M and 32M rows, K2 at about 8M rows a third
+live, K4 and K5 at about 8M rows), K1 and K3-K5 at the main path's
+largest launch shape on operands shaped as that path gives them
+(MAIN_LAUNCH) and on the 80%-live mix of earlier runs, its checks against
+the plain versions, its CUDA-event timing in turns and its traced device
+time per CUDA kernel.  So one chip call can time two commits in turns
+(A, B, B, A):
 
     python3 scripts/time_kernels.py              # this checkout
     python3 scripts/time_kernels.py --root DIR   # another tree of the port
+    python3 scripts/time_kernels.py --kernels merge_fold_compact,merge_sorted_runs_fold_bitonic
 
 ``--root`` imports ``kmer_counter_tpu_torch`` from DIR (an unpacked ``git
 archive`` of another commit), which builds its kernels from its own
-``csrc/``; the operands, checks and timing stay this checkout's.  Prints
+``csrc/``; the operands, checks and timing stay this checkout's.
+``--kernels`` times only the named ones (chip_smoke.py's names).  Prints
 the card's name and power limit, chip_smoke.py's kernel lines, then each
 source's nvcc report (registers, spills).
 """
@@ -22,12 +27,18 @@ import os
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# The largest launch of K1 in chip_smoke.py's main path (its third
+# consolidation), as its launch_shapes log it: (NL, na, nb, A's live rows,
+# B's live rows, B's live rows with the sentinel key).
+MAIN_LAUNCH = (2, 166_666_500, 97_222_223, 4_599_964, 55_555_500, 21_626_652)
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
-    root = os.path.abspath(ap.parse_args().root)
+    ap.add_argument("--kernels", default=None, help="comma-separated; default: all")
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
@@ -44,10 +55,23 @@ def main():
     cs.log(cs.smi_line())
     cs.log({"tree": os.path.relpath(root, HERE)})
     device = torch.device("cuda")
+    cases = cs.load_test_cases()
     gen = torch.Generator(device=device).manual_seed(cs.SEED)
-    cs.sort_random_shapes(device, cs.load_test_cases(), gen)
-    cs.k2_random_shapes(device, gen)
-    for source in ("lane_sort", "compact_live"):
+    names = args.kernels.split(",") if args.kernels else [
+        cs.SORT["name"], cs.K2["name"], cs.K1["name"], *cs.MERGES]
+    for name in names:
+        if name == cs.SORT["name"]:
+            cs.sort_random_shapes(device, cases, gen)
+        elif name == cs.K2["name"]:
+            cs.k2_random_shapes(device, gen)
+        elif name == cs.K1["name"]:
+            cs.k1_random_shapes(device, gen)
+            cs.k1_at_shape("main", MAIN_LAUNCH, gen, device)
+        else:
+            cs.merge_random_shapes(device, cases, gen, name)
+            cs.merge_at_shape(cases, name, "main", MAIN_LAUNCH, gen, device)
+        torch.cuda.empty_cache()
+    for source in sorted(cuda_build.build_seconds):
         cs.log(f"# {source}: nvcc {cuda_build.build_seconds[source]:.2f} s\n"
                f"{cuda_build.build_log.get(source, '').strip()}")
 

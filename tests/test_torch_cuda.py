@@ -21,10 +21,13 @@ import numpy as np
 import pytest
 import torch
 
-# Rows per merge tile: the CUDA kernel's rows per block, and the Pallas
-# tile the JAX package's interpret-mode tests use.
+# Rows per merge tile of the CPU cases: the Pallas tile the JAX package's
+# interpret-mode tests use, and the rows per block of the K4/K5 CUDA passes.
 TILE = 1024
 M = 0xFFFFFFFF
+# Merged rows per tile of the K1/K3 CUDA kernel (fold_kernel in
+# csrc/merge_fold_compact.cu) at NL = 1..8.
+FOLD_TILE = {NL: 256 * (16 if NL <= 2 else 8) for NL in range(1, 9)}
 # Rows per leaf tile of the sort kernel (csrc/lane_sort.cu) at NL = 1..8,
 # and rows per block of the compaction kernel (csrc/compact_live.cu).
 SORT_TILE = {1: 16384, 2: 16384, 3: 8192, 4: 8192, 5: 4096, 6: 4096, 7: 4096, 8: 4096}
@@ -52,15 +55,15 @@ def _case(a_rows, a_counts, b_rows_asc, b_live_asc):
     )
 
 
-def random_case(rng, NL, na, nb, pool=None, sent_frac=0.05, dead_frac=0.1):
+def random_case(rng, NL, na, nb, pool=None, sent_frac=0.05, dead_frac=0.1, a_live=0.8):
     """A consolidation-shaped case: A = unique sorted prefix rows with
-    counts (some near 2^32) and a sentinel/0 tail; B = raw rows drawn with
-    repeats from the same key pool, with masked windows (sentinel, live)
-    and dead rows (all-zero key, liveness 0)."""
+    counts (some near 2^32), at most a_live of them, and a sentinel/0 tail;
+    B = raw rows drawn with repeats from the same key pool, with masked
+    windows (sentinel, live) and dead rows (all-zero key, liveness 0)."""
     pool = pool or max((na + nb) // 3, 4)
     keys = rng.integers(0, 2**32, (pool, NL), dtype=np.uint64).astype(np.uint32)
     keys[0] = 0  # the A^k key collides with dead rows
-    a_rows = np.unique(keys[rng.integers(0, pool, na)], axis=0)[: int(na * 0.8)]
+    a_rows = np.unique(keys[rng.integers(0, pool, na)], axis=0)[: int(na * a_live)]
     n_live_a = len(a_rows)
     a_counts = rng.integers(1, 6, n_live_a).astype(np.uint32)
     a_counts[rng.random(n_live_a) < 0.02] = rng.integers(2**31, 2**32, dtype=np.uint64)
@@ -133,6 +136,73 @@ EDGE_CASES = {
     "na_much_larger_than_nb": _na_much_larger,
     "na_much_smaller_than_nb": _na_much_smaller,
     "only_sentinels_and_dead_rows": _only_sentinels_and_dead,
+}
+
+
+# Cases at the K1/K3 kernel's own tile (FOLD_TILE): sizes at its edges, the
+# sentinel tail starting around a tile edge, a prefix that is almost all
+# sentinel tail (as the pre-grown two-level prefix is), an input with no
+# other key, keys next to the sentinel, a run over more tiles than a
+# look-back round reads (32), and totals that wrap across tiles.
+_F2, _F7 = FOLD_TILE[2], FOLD_TILE[7]
+
+
+def _sentinel_tail_at(rng, S):
+    """NL = 2; the first S merged rows are not the sentinel (a third of
+    them A's), then A's sentinel tail and B's masked windows."""
+    NL, a_live = 2, S // 3
+    keys = np.unique(rng.integers(0, 2**31, (S + 100, NL)).astype(np.uint32), axis=0)
+    keys = keys[rng.permutation(len(keys))[:S]]
+    a_rows = _sorted_rows(keys[:a_live])
+    b_rows = _sorted_rows(np.vstack([keys[a_live:], np.full((50, NL), M)]))
+    a = np.vstack([a_rows, np.full((_F2 + 7, NL), M)])
+    ac = np.concatenate([rng.integers(1, 6, a_live), np.zeros(_F2 + 7)])
+    return (NL, *_case(a, ac, b_rows, np.ones(len(b_rows))))
+
+
+def _next_to_sentinel(rng):
+    # keys (M, .., M, M-1) and (M, .., M-1, M) just below the sentinel, live
+    # in A and B, then A's sentinel tail and B's masked windows (sentinel,
+    # liveness 1)
+    NL = 3
+    near = np.array([[M, M, M - 1], [M, M - 1, M]], np.uint32)
+    a = np.vstack([_sorted_rows(rng.integers(0, 2**31, (_F7, NL))), near[::-1], np.full((3 * _F7, NL), M)])
+    ac = np.concatenate([np.ones(_F7 + 2), rng.integers(0, 3, 3 * _F7)])
+    b = _sorted_rows(np.vstack([rng.integers(0, 2**31, (_F7 // 2, NL)), np.repeat(near, 5, axis=0),
+                                np.full((_F7 // 3, NL), M)]))
+    return (NL, *_case(a, ac, b, np.ones(len(b))))
+
+
+def _run_longer_than_look_back(rng):
+    NL, nb = 1, 65 * FOLD_TILE[1] + 17
+    b = np.sort(np.concatenate([np.full(nb - 40, 7), np.full(40, 9)]))
+    live = np.ones(nb)
+    live[rng.integers(0, nb, 1000)] = 0  # the kernel takes liveness as the count
+    return (NL, *_case([[5], [7], [M]], [1, 1, 0], b[:, None], live))
+
+
+def _totals_wrap_across_tiles(rng):
+    # key (0, 3): 2^32 - 3T in A + 3T live rows of B, a total of 0, dropped;
+    # key (0, 4): 2^32 - 1 + 2T - 1 live rows, wraps to 2T - 2
+    NL, T = 2, _F2
+    a = [[0, 1], [0, 3], [0, 4], [0, 8], [M, M], [M, M]]
+    ac = [1, 2**32 - 3 * T, 2**32 - 1, 5, 0, 0]
+    b = np.array([[0, 2]] * 11 + [[0, 3]] * (3 * T) + [[0, 4]] * (2 * T - 1) + [[0, 9]] * 3)
+    return (NL, *_case(a, ac, b, np.ones(len(b))))
+
+
+FOLD_CASES = {
+    **{f"n_fold_tile_{d:+d}": (lambda rng, d=d: random_case(rng, 2, _F2 // 3, _F2 - _F2 // 3 + d))
+       for d in (-1, 0, 1)},
+    "n_two_fold_tiles_plus_1_nl7": lambda rng: random_case(rng, 7, _F7 // 2, 3 * _F7 // 2 + 1),
+    **{f"sentinel_tail_at_fold_tile_{d:+d}": (lambda rng, d=d: _sentinel_tail_at(rng, _F2 + d))
+       for d in (-1, 0, 1)},
+    "prefix_97pct_sentinel": lambda rng: random_case(rng, 2, 20 * _F2, 3 * _F2, a_live=0.03),
+    "all_sentinel": lambda rng: (2, *_case(np.full((5 * _F2, 2), M), rng.integers(0, 5, 5 * _F2),
+                                           np.full((_F2 + 3, 2), M), np.ones(_F2 + 3))),
+    "keys_next_to_the_sentinel": _next_to_sentinel,
+    "run_longer_than_look_back": _run_longer_than_look_back,
+    "totals_wrap_across_tiles": _totals_wrap_across_tiles,
 }
 
 
@@ -299,13 +369,90 @@ def _kernel_vs_plain(case, device):
 def test_kernel_tile_matches_case_tile(cuda):
     from kmer_counter_tpu_torch.ops import merge_fold_compact as mfc
 
-    assert mfc.tile_rows() == TILE
+    assert [mfc.tile_rows(NL) for NL in range(1, 9)] == [FOLD_TILE[NL] for NL in range(1, 9)]
+    assert mfc.tile_rows(9) == 0
+    assert mfc._lib().mfc_tile_rows() == TILE  # the K4/K5 passes
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", sorted(EDGE_CASES))
 def test_kernel_edge_cases(cuda, name):
     _kernel_vs_plain(EDGE_CASES[name](np.random.default_rng(0)), cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["merge_fold_compact", "merge_sorted_runs_fold_bitonic"])
+@pytest.mark.parametrize("name", sorted(FOLD_CASES))
+def test_fold_kernel_cases(cuda, kernel, name):
+    case = FOLD_CASES[name](np.random.default_rng(0))
+    if kernel == "merge_fold_compact":
+        _kernel_vs_plain(case, cuda)
+    else:
+        _merge_vs_plain(kernel, case, cuda)
+
+
+def fold_column_slices(case, device, start):
+    """K1/K3 operands whose lanes are column slices of wider tables, each
+    starting `start` words in (column_slices below)."""
+    NL, a, ac, bd, bc = case
+    a_keys, a_counts = column_slices(a, ac, device, start)
+    b_keys, b_live = column_slices(bd, bc, device, start)
+    return [*a_keys.unbind(0), a_counts], [*b_keys.unbind(0), b_live], NL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["merge_fold_compact", "merge_sorted_runs_fold_bitonic"])
+@pytest.mark.parametrize("start", [1, 2, 3])
+@pytest.mark.parametrize("NL", [1, 2, 5])
+def test_fold_kernels_on_unaligned_column_slices(cuda, kernel, start, NL):
+    # A's and B's lanes start past a 16-byte boundary, and na + nb (the
+    # output's row width) is no multiple of 4
+    from kmer_counter_tpu_torch.ops import merge_fold_compact as mfc
+    from kmer_counter_tpu_torch.ops import merge_runs as mr
+
+    T = FOLD_TILE[NL]
+    case = random_case(np.random.default_rng(start), NL, 2 * T + 1, 3 * T + 2 * start, a_live=0.3)
+    a_ops, b_ops, _ = fold_column_slices(case, cuda, start)
+    assert all(v.data_ptr() % 16 for v in a_ops + b_ops)
+    plain = [[v.contiguous() for v in side] for side in (a_ops, b_ops)]
+    if kernel == "merge_fold_compact":
+        out, live = mfc.merge_fold_compact(a_ops, b_ops, NL)
+        want, want_live = mfc.merge_fold_compact_reference(*plain, NL)
+        assert int(live) == int(want_live)
+    else:
+        out = mr.merge_sorted_runs_fold_bitonic(a_ops, b_ops, NL)
+        want = mr.merge_sorted_runs_fold_bitonic_reference(*plain, NL)
+    assert torch.equal(out, want)
+
+
+@pytest.mark.gpu
+def test_k1_failed_launch_raises_and_never_falls_back(cuda, monkeypatch):
+    from kmer_counter_tpu_torch.cuda_build import ptr_array
+    from kmer_counter_tpu_torch.ops import merge_fold_compact as mfc
+    from kmer_counter_tpu_torch.ops import merge_runs as mr
+
+    a_ops, b_ops, NL = operands(random_case(np.random.default_rng(0), 2, 100, 100), cuda)
+    lib = mfc._lib()
+    out = torch.empty((3, 200), dtype=torch.int32, device=cuda)
+    scratch = torch.zeros(64, dtype=torch.int64, device=cuda)
+    assert lib.mfc_fold(ptr_array(a_ops), ptr_array(b_ops), ptr_array(list(out)), mfc.K1, 9, 100, 100,
+                        scratch.data_ptr(), torch.cuda.current_stream().cuda_stream) != 0
+
+    class Refusing:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        @staticmethod
+        def mfc_fold(*args):
+            return 9  # cudaErrorInvalidConfiguration
+
+    monkeypatch.setattr(mfc, "_lib", Refusing)
+    before = (mfc.launches, mr.launches["merge_sorted_runs_fold_bitonic"])
+    with pytest.raises(RuntimeError, match="launch failed"):
+        mfc.merge_fold_compact(a_ops, b_ops, NL)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        mr.merge_sorted_runs_fold_bitonic(a_ops, b_ops, NL)
+    assert (mfc.launches, mr.launches["merge_sorted_runs_fold_bitonic"]) == before
 
 
 @pytest.mark.gpu

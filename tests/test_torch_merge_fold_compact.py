@@ -5,10 +5,12 @@
 tensors, so its wrapper takes the plain version.  Exact equality of every
 output row, fill included, and of live_count.
 
-The CUDA kernel itself runs only on the card (tests/test_torch_cuda.py,
-chip_smoke.py).  Its cross-tile logic — per-tile stats, then torch scans
-(``tile_carry_and_offsets``), then per-tile compaction — is checked here
-against the plain version by computing the same per-tile numbers in numpy.
+The CUDA kernels run only on the card (tests/test_torch_cuda.py,
+chip_smoke.py).  The cross-tile logic of the split passes — per-tile
+stats, then torch scans (``tile_carry_and_offsets``), then per-tile
+compaction; K4 runs them — is checked here against the plain K1 by
+computing the same per-tile numbers in numpy.  The one-pass kernel that
+runs K1 and K3 has its model in tests/test_torch_merge_lookback.py.
 """
 
 import jax.numpy as jnp
