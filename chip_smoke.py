@@ -16,20 +16,24 @@ and prints no result):
                 the launch counts of K1 (merge_fold_compact) and of the sort
                 (lane_sort, at finalize) in that run and their launch
                 shapes (for K1 and the merges also the live rows of A and B
-                and B's live rows with the sentinel key); the dump is
-                byte-identical to an independent NumPy count
+                and B's live rows with the sentinel key, for K1 and K2 the
+                output width, the prefix's CP columns); the dump is
+                byte-identical to an independent NumPy count; the run's
+                peak device memory is at most gpuMemoryLimit (so in every
+                main path)
   4. main_one — the same count with tableImpl=one: every consolidation is a
                 sort_reduce through the sort kernel; its launch count and
                 shapes; the dump is byte-identical to the same NumPy count
   5. main_variants — the two-level count three more times, with
                 table2.consolidate3 bound to each split variant (its
                 keywords): each consolidation runs the variant's merge
-                kernel (K3 merge_sorted_runs_fold_bitonic, K4
-                merge_sorted_runs_fold or K5 merge_sorted_runs) and the
-                compaction K2 (compact_live), and K1 never; launches (the
-                merge and K2 at least twice each, K1 none), launch shapes,
-                peak device memory; each dump byte-identical to the NumPy
-                count
+                kernel (K3 merge_sorted_runs_fold_bitonic or K4
+                merge_sorted_runs_fold, both on K1's one-pass fold_kernel,
+                or K5 merge_sorted_runs on its split and write passes) and
+                the compaction K2 (compact_live), and K1 never; launches
+                (the merge and K2 at least twice each, K1 none), launch
+                shapes, peak device memory (at most gpuMemoryLimit); each
+                dump byte-identical to the NumPy count
   6. kernel   — each kernel against its plain torch version on the card:
                 K1, K2, K3 and K4 bit-exact, and the sort and K5 with
                 bit-exact keys and the same payloads under each key, at
@@ -47,7 +51,11 @@ and prints no result):
                 computes the same function, that call; the device time and
                 launches of each CUDA kernel in one traced call (the sort's
                 merge passes are its merge kernel's launches there); the
-                least time the card could take (the bound) per shape
+                least time the card could take (the bound) per shape:
+                bytes that these operands need (the folding merges read
+                only the rows that are not the sentinel; K1 and K2 write
+                their output's width, the prefix's columns on the main
+                paths) and operations
   7. mid_one  — a one-level run at k=55 forward (4 key lanes): 100k reads x
                 150 bp, several consolidations; byte-identical to NumPy
   8. small    — CLI runs at k=15, 16 (all-T reads), 55 and 101 (canonical)
@@ -86,7 +94,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 PALLAS = "kmer_counter_tpu/ops/pallas_sort.py"
 MFC_CU = "kmer_counter_tpu_torch/csrc/merge_fold_compact.cu"
-K1 = dict(name="merge_fold_compact", route="cuda", source=MFC_CU, replaces=f"{PALLAS}:781")
+# Each kernel's entry of the kernels line; "cuda_kernels" names the CUDA
+# kernels its wrapper launches.
+K1 = dict(name="merge_fold_compact", route="cuda", source=MFC_CU, replaces=f"{PALLAS}:781",
+          cuda_kernels="fold_kernel + fill_kernel")
 # K6 (leaf_sort, :204) + K7 (_merge_pass, :313) as one sort.
 SORT = dict(
     name="lane_sort",
@@ -94,22 +105,25 @@ SORT = dict(
     source="kmer_counter_tpu_torch/csrc/lane_sort.cu",
     replaces=f"{PALLAS}:204",
     replaces_also=f"{PALLAS}:313",
+    cuda_kernels="leaf_kernel + merge_kernel",
 )
 # Kernel names of the sort's two kernels and of K1's two (the one-pass
 # merge and its fill; K2's fill kernel is no template) in a profiler trace.
 SORT_KERNEL_NAMES = ("leaf_kernel<", "merge_kernel<")
 K1_KERNEL_NAMES = ("fold_kernel<", "fill_kernel<")
 K2 = dict(name="compact_live", route="cuda", source="kmer_counter_tpu_torch/csrc/compact_live.cu",
-          replaces=f"{PALLAS}:1573")
-# K3, K4, K5: in K1's source (K3 runs K1's one-pass kernel, K4 and K5 the
-# split, stats and write passes); named as in ops.merge_runs.
+          replaces=f"{PALLAS}:1573", cuda_kernels="compact_kernel + fill_kernel")
+# K3, K4, K5: in K1's source (K3 and K4 run K1's one-pass fold_kernel, B
+# stored descending for K3 and ascending for K4; K5 the split and write
+# passes); named as in ops.merge_runs.
 MERGES = {
     "merge_sorted_runs_fold_bitonic": dict(name="merge_sorted_runs_fold_bitonic", route="cuda",
-                                           source=MFC_CU, replaces=f"{PALLAS}:1271"),
+                                           source=MFC_CU, replaces=f"{PALLAS}:1271",
+                                           cuda_kernels="fold_kernel"),
     "merge_sorted_runs_fold": dict(name="merge_sorted_runs_fold", route="cuda", source=MFC_CU,
-                                   replaces=f"{PALLAS}:1105"),
+                                   replaces=f"{PALLAS}:1105", cuda_kernels="fold_kernel"),
     "merge_sorted_runs": dict(name="merge_sorted_runs", route="cuda", source=MFC_CU,
-                              replaces=f"{PALLAS}:1804"),
+                              replaces=f"{PALLAS}:1804", cuda_kernels="splits_kernel + write_kernel"),
 }
 MAIN_K, MAIN_L, MAIN_READS, MAIN_FILES, MAIN_GENOME = 31, 100, 2_000_000, 4, 4_600_000
 MEMORY_LIMIT = 8_000_000_000
@@ -307,25 +321,25 @@ def merge_bound(NL, na, nb):
     return bound(2 * n * (NL + 1) * 4, 16 * n * (NL + 1))
 
 
-def fold_bound(a_ops, b_ops, NL):
+def fold_bound(a_ops, b_ops, NL, out_rows=None):
     """A merge that folds (K1, K3, K4), counting what these operands need:
     their rows that are not the sentinel read once (the sentinel rows, the
     largest keys, come last and fold to nothing, whatever their counts),
-    every output row written once, and 16 integer operations a row and lane
-    merged."""
+    every output row written once (K1: out_rows of them, na+nb by default),
+    and 16 integer operations a row and lane merged."""
     import torch
 
     read = sum(int((torch.stack(list(side[:NL])) != -1).any(0).sum()) for side in (a_ops, b_ops))
-    n = a_ops[0].numel() + b_ops[0].numel()
-    return bound((read + n) * (NL + 1) * 4, 16 * read * (NL + 1))
+    written = a_ops[0].numel() + b_ops[0].numel() if out_rows is None else out_rows
+    return bound((read + written) * (NL + 1) * 4, 16 * read * (NL + 1))
 
 
-def bounds_of(kernel, a_ops, b_ops, NL):
+def bounds_of(kernel, a_ops, b_ops, NL, out_rows=None):
     """(bound for the line, the every-row bound of earlier runs or None)."""
     every_row = merge_bound(NL, a_ops[0].numel(), b_ops[0].numel())
     if kernel not in FOLDING:
         return every_row, None
-    return fold_bound(a_ops, b_ops, NL), every_row[0]
+    return fold_bound(a_ops, b_ops, NL, out_rows), every_row[0]
 
 
 def traced_kernels(fn):
@@ -485,16 +499,20 @@ def random_merge_operands(kernel, NL, na, nb, gen, device, path=None):
     return a_ops, [*s.unbind(0), counts]
 
 
-def compare_k1(a_ops, b_ops, NL, time_it):
-    """Kernel vs plain on the same operands: bit-exact or raise.  Returns
-    the timing dict (times None unless time_it)."""
+def compare_k1(a_ops, b_ops, NL, time_it, out_rows=None):
+    """Kernel vs plain on the same operands, writing out_rows columns (na+nb
+    by default): bit-exact or raise.  Returns the timing dict (times None
+    unless time_it)."""
     import torch
 
     from kmer_counter_tpu_torch.ops import merge_fold_compact as mfc
     from kmer_counter_tpu_torch.ops.u32 import widen
 
-    out, live = mfc.merge_fold_compact(a_ops, b_ops, NL)
-    want, want_live = mfc.merge_fold_compact_reference(a_ops, b_ops, NL)
+    # Only a tree that has the argument is given it (scripts/time_kernels.py
+    # may time an older one).
+    kw = {} if out_rows is None else {"out_rows": out_rows}
+    out, live = mfc.merge_fold_compact(a_ops, b_ops, NL, **kw)
+    want, want_live = mfc.merge_fold_compact_reference(a_ops, b_ops, NL, **kw)
     torch.cuda.synchronize()
     err = int((widen(out) - widen(want)).abs().max()) if out.numel() else 0
     if int(live) != int(want_live) or not torch.equal(out, want):
@@ -503,13 +521,13 @@ def compare_k1(a_ops, b_ops, NL, time_it):
             f"nb={b_ops[0].numel()} live {int(live)} vs {int(want_live)}, max_abs_err {err}"
         )
     del out, want
-    cost, every_row = bounds_of(K1["name"], a_ops, b_ops, NL)
+    cost, every_row = bounds_of(K1["name"], a_ops, b_ops, NL, out_rows)
     if not time_it:
         return timing(err, None, None, cost, every_row_bound_ms=every_row)
-    ms, plain_ms, _ = in_turns(lambda: mfc.merge_fold_compact(a_ops, b_ops, NL),
-                               lambda: mfc.merge_fold_compact_reference(a_ops, b_ops, NL))
+    ms, plain_ms, _ = in_turns(lambda: mfc.merge_fold_compact(a_ops, b_ops, NL, **kw),
+                               lambda: mfc.merge_fold_compact_reference(a_ops, b_ops, NL, **kw))
     return {**timing(err, ms, plain_ms, cost, every_row_bound_ms=every_row),
-            "device_kernels": traced_kernels(lambda: mfc.merge_fold_compact(a_ops, b_ops, NL))}
+            "device_kernels": traced_kernels(lambda: mfc.merge_fold_compact(a_ops, b_ops, NL, **kw))}
 
 
 def k1_random_shapes(device, gen):
@@ -530,18 +548,18 @@ def k1_random_shapes(device, gen):
 
 def k1_at_shape(path, shape, gen, device):
     """K1 vs plain, timed, at one main-path launch shape (NL, na, nb,
-    live_a, live_b, masked_b): first on operands shaped as the path gave
-    them, then on the 80%-live random mix of the same size.  Returns the
-    path-shaped timing."""
-    NL, na, nb, *live = shape
+    live_a, live_b, masked_b, out_rows; out_rows None for na+nb): first on
+    operands shaped as the path gave them, then on the 80%-live random mix
+    of the same size.  Returns the path-shaped timing."""
+    NL, na, nb, *live, out_rows = shape
     out = None
     for mix in ("path", "random_80pct_live"):
         a_ops, b_ops = random_k1_operands(NL, na, nb, gen, device, live if mix == "path" else None)
-        t = compare_k1(a_ops, b_ops, NL, time_it=True)
+        t = compare_k1(a_ops, b_ops, NL, time_it=True, out_rows=out_rows)
         del a_ops, b_ops
         log({"phase": "kernel", "kernel": K1["name"], "path": path, "main_path_launch_shape": True,
              "operands": mix, "NL": NL, "na": na, "nb": nb, "live_a": live[0], "live_b": live[1],
-             "masked_b": live[2], "bit_exact": True, **t})
+             "masked_b": live[2], "out_rows": out_rows, "bit_exact": True, **t})
         out = out or t
     return out
 
@@ -822,35 +840,42 @@ def phase_merge_kernels(device, cases, shapes_by_kernel):
     return results
 
 
-def compare_k2(ops2d, live, num_keys, time_it):
+def compare_k2(ops2d, live, num_keys, time_it, out_rows=None):
     """K2 vs plain on the rows of ops2d [n_ops, n] with the flags ``live``
-    (one of those rows, as in the table, or a separate lane): bit-exact or
-    raise.  Returns the timing dict; the library call is ops2d[:, live != 0]."""
+    (one of those rows, as in the table, or a separate lane), writing
+    out_rows columns (n by default): bit-exact or raise.  Returns the
+    timing dict; the library call is ops2d[:, live != 0]."""
     import torch
 
     from kmer_counter_tpu_torch.ops import compact_live as cl
     from kmer_counter_tpu_torch.ops.u32 import widen
 
     ops = list(ops2d.unbind(0))
-    got, want = cl.compact_live(ops, live, num_keys), cl.compact_live_reference(ops, live, num_keys)
+    n_ops, n = ops2d.shape
+    # Only a tree that has the argument is given it (scripts/time_kernels.py
+    # may time an older one).
+    kw = {} if out_rows is None else {"out_rows": out_rows}
+    width = n if out_rows is None else out_rows
+    got = cl.compact_live(ops, live, num_keys, **kw)
+    want = cl.compact_live_reference(ops, live, num_keys, **kw)
     torch.cuda.synchronize()
     err = int((widen(got) - widen(want)).abs().max()) if got.numel() else 0
     if not torch.equal(got, want):
-        raise AssertionError(f"K2 kernel disagrees with plain: n_ops={len(ops)} n={live.numel()}, "
-                             f"max_abs_err {err}")
+        raise AssertionError(f"K2 kernel disagrees with plain: n_ops={len(ops)} n={live.numel()} "
+                             f"out_rows={width}, max_abs_err {err}")
     del got, want
-    # What this data needs: the flags, the other lanes of the live rows,
-    # every output row; a few integer operations a row and lane.
-    n_ops, n = ops2d.shape
+    # What this data needs: the flags, the other lanes of the live rows
+    # that fit, every output row; a few integer operations a row and lane.
     other = n_ops - any(v.data_ptr() == live.data_ptr() for v in ops)
-    cost = bound(4 * (n + int((live != 0).sum()) * other + n * n_ops), 4 * n * n_ops)
+    kept = min(int((live != 0).sum()), width)
+    cost = bound(4 * (n + kept * other + width * n_ops), 4 * n * n_ops)
     if not time_it:
         return timing(err, None, None, cost)
-    ms, plain_ms, library_ms = in_turns(lambda: cl.compact_live(ops, live, num_keys),
-                                        lambda: cl.compact_live_reference(ops, live, num_keys),
+    ms, plain_ms, library_ms = in_turns(lambda: cl.compact_live(ops, live, num_keys, **kw),
+                                        lambda: cl.compact_live_reference(ops, live, num_keys, **kw),
                                         lambda: ops2d[:, live != 0])
     return {**timing(err, ms, plain_ms, cost, library_ms),
-            "device_kernels": traced_kernels(lambda: cl.compact_live(ops, live, num_keys))}
+            "device_kernels": traced_kernels(lambda: cl.compact_live(ops, live, num_keys, **kw))}
 
 
 def random_k2_operands(n_ops, n, live_rows, gen, device):
@@ -909,11 +934,12 @@ def phase_k2_kernel(device, cases, shapes_by_path):
          "sizes": cases.COMPACT_SIZES, "bit_exact": True})
 
     def at_shape(path, shape):
-        n_ops, n, live_rows = shape
+        n_ops, n, live_rows, out_rows = shape
         ops2d = random_k2_operands(n_ops, n, live_rows, gen, device)
-        t = compare_k2(ops2d, ops2d[-1], n_ops - 1, time_it=True)
+        t = compare_k2(ops2d, ops2d[-1], n_ops - 1, time_it=True, out_rows=out_rows)
         log({"phase": "kernel", "kernel": K2["name"], "path": path, "main_path_launch_shape": True,
-             "n_ops": n_ops, "n": n, "live_rows": live_rows, "bit_exact": True, **t})
+             "n_ops": n_ops, "n": n, "live_rows": live_rows, "out_rows": out_rows, "bit_exact": True,
+             **t})
         return t
 
     return per_path_totals(shapes_by_path, at_shape, max_err)
@@ -922,10 +948,11 @@ def phase_k2_kernel(device, cases, shapes_by_path):
 class LaunchShapes:
     """Records the shape of each call of the kernel wrappers on the table
     paths: (NL, na, nb, A's live rows, B's live rows, B's live rows with
-    the sentinel key) for K1 and the merges, (NL, n) for the sort, and
-    (n_ops, n, live rows) for K2; the kernel phase compares and times the
-    kernels at those shapes.  ``variant``: consolidate3's keywords, bound
-    to table2.consolidate3 while the context is open."""
+    the sentinel key) for the merges, the same and the output width for K1,
+    (NL, n) for the sort, and (n_ops, n, live rows, output width) for K2;
+    the kernel phase compares and times the kernels at those shapes.
+    ``variant``: consolidate3's keywords, bound to table2.consolidate3 while
+    the context is open."""
 
     def __init__(self, variant=None):
         import functools
@@ -942,15 +969,22 @@ class LaunchShapes:
             self._patches.append((table2, "consolidate3", functools.partial(table2.consolidate3, **variant)))
         self._reals = {(m, name): getattr(m, name) for m, name, _ in self._patches}
 
+    # The counts are taken piece by piece (table2._count_rows): a sum over a
+    # whole lane would widen it to int64 and raise the peak device memory
+    # that phase_main holds to gpuMemoryLimit.
     def _merge(self, name):
         import torch
 
-        def call(a_ops, b_ops, num_keys):
-            b_live = b_ops[num_keys] != 0
-            masked = int(((torch.stack(list(b_ops[:num_keys])) == -1).all(0) & b_live).sum())
-            self.shapes[name].append((num_keys, a_ops[0].numel(), b_ops[0].numel(),
-                                      int((a_ops[num_keys] != 0).sum()), int(b_live.sum()), masked))
-            return self._reals[(self._table2, name)](a_ops, b_ops, num_keys)
+        count = self._table2._count_rows
+
+        def call(a_ops, b_ops, num_keys, **kw):
+            na, nb, b_live = a_ops[0].numel(), b_ops[0].numel(), b_ops[num_keys]
+            masked = count(nb, lambda p0, p1: (torch.stack([v[p0:p1] for v in b_ops[:num_keys]]) == -1).all(0)
+                           & (b_live[p0:p1] != 0))
+            shape = (num_keys, na, nb, count(na, lambda p0, p1: a_ops[num_keys][p0:p1] != 0),
+                     count(nb, lambda p0, p1: b_live[p0:p1] != 0), masked)
+            self.shapes[name].append(shape + ((kw.get("out_rows"),) if name == K1["name"] else ()))
+            return self._reals[(self._table2, name)](a_ops, b_ops, num_keys, **kw)
 
         return call
 
@@ -958,9 +992,10 @@ class LaunchShapes:
         self.shapes[SORT["name"]].append(tuple(keys.shape))
         return self._reals[(self._lane_sort, "sort_ops")](keys, payload)
 
-    def _k2(self, operands, live, num_keys):
-        self.shapes[K2["name"]].append((len(operands), live.numel(), int((live != 0).sum())))
-        return self._reals[(self._table2, "compact_live")](operands, live, num_keys)
+    def _k2(self, operands, live, num_keys, out_rows=None):
+        live_rows = self._table2._count_rows(live.numel(), lambda p0, p1: live[p0:p1] != 0)
+        self.shapes[K2["name"]].append((len(operands), live.numel(), live_rows, out_rows))
+        return self._reals[(self._table2, "compact_live")](operands, live, num_keys, out_rows)
 
     def __enter__(self):
         for module, name, fn in self._patches:
@@ -1063,6 +1098,8 @@ def phase_main(device, tmp, cases):
         if variant:
             entry = {"phase": phase, "variant": variant, "consolidate3": kw, **entry}
         log(entry)
+        if peak > MEMORY_LIMIT:
+            raise AssertionError(f"{path}: peak device memory {peak} bytes > gpuMemoryLimit {MEMORY_LIMIT}")
         runs[path] = (launches, shapes)
         os.unlink(out)
     return runs
@@ -1130,39 +1167,58 @@ def phase_small(tmp, cases):
                  "variant": variant, "byte_identical_to_numpy_count": True})
 
 
-def stage_peaks(device, run):
-    """One more run with each table stage wrapped: the peak device memory
-    inside each stage, over its calls (the card is synchronised around
-    every call, so the run's times are not reported)."""
-    import torch
-
+def table_stages():
+    """The table stages whose peaks stage_peaks takes by default."""
     from kmer_counter_tpu_torch.ops import pipeline, table, table2
 
-    stages = [(pipeline, "count_step_two_level"), (table2, "grow2"),
-              (table2, "consolidate3"), (table2, "finalize2"),
-              (table, "append"), (table, "grow"), (table, "consolidate")]
+    return [(pipeline, "count_step_two_level"), (table2, "grow2"),
+            (table2, "consolidate3"), (table2, "finalize2"),
+            (table, "append"), (table, "grow"), (table, "consolidate")]
+
+
+def stage_peaks(device, run, stages=None):
+    """One more run with each stage (module, name) wrapped: the peak device
+    memory inside each stage, over its calls, and under "run" that of the
+    whole run (the card is synchronised around every call, so the run's
+    times are not reported).  Stages may nest (a consolidation's steps
+    inside consolidate3): the peak reached inside a stage counts for every
+    stage around it."""
+    import torch
+
+    open_peaks = [0]  # the peak so far of each open stage, the run first
     peaks = {}
 
+    def fold():  # the peak since the last reset, into every open stage
+        torch.cuda.synchronize()
+        m = torch.cuda.max_memory_allocated(device)
+        open_peaks[:] = [max(p, m) for p in open_peaks]
+        torch.cuda.reset_peak_memory_stats(device)
+
     def wrapped(name, real):
-        def call(*args):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats(device)
-            out = real(*args)
-            torch.cuda.synchronize()
-            peaks[name] = max(peaks.get(name, 0), torch.cuda.max_memory_allocated(device))
-            return out
+        def call(*args, **kw):
+            fold()
+            open_peaks.append(0)
+            try:
+                return real(*args, **kw)
+            finally:
+                fold()
+                peaks[name] = max(peaks.get(name, 0), open_peaks.pop())
 
         return call
 
+    stages = table_stages() if stages is None else stages
     reals = [getattr(module, name) for module, name in stages]
     for (module, name), real in zip(stages, reals):
         setattr(module, name, wrapped(f"{module.__name__.rsplit('.', 1)[1]}.{name}", real))
     try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
         run()
+        fold()
     finally:
         for (module, name), real in zip(stages, reals):
             setattr(module, name, real)
-    return peaks
+    return {"run": open_peaks[0], **peaks}
 
 
 def phase_profile(device, tmp, untraced=3, top=15):

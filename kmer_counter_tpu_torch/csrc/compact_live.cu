@@ -5,12 +5,13 @@
 // Computes, for n_ops value lanes of n rows and a live flag per row: the
 // rows with live != 0 packed to the front in their original order; every
 // row after them holds 0xFFFFFFFF in the first num_keys lanes (the
-// sentinel key) and 0 in the rest.  The output has the input's widths.
+// sentinel key) and 0 in the rest.  The output is out_rows <= n rows wide:
+// live rows of rank out_rows and above are not written.
 //
 // What bounds it: memory.  It must read the flags (4 bytes a row) and the
 // other lanes of the live rows, and write every output row (n_ops*4 bytes),
 // at 3.35 TB/s; at the two-level table's densities (a few percent live)
-// that is about n_ops*4 + 4 bytes a row.  There is no arithmetic to speak
+// that is about 4 bytes a row and n_ops*4 bytes an output row.  There is no arithmetic to speak
 // of.  So the flags are read once, and the fill, most of the bytes, is
 // written with 16-byte stores.
 //
@@ -27,12 +28,13 @@
 //      aggregate) in the tile's 64-bit status word; looks back over the
 //      words of the tiles before it, 32 at a time, one per lane of a warp,
 //      adding aggregates up to the nearest inclusive prefix; then publishes
-//      its own inclusive prefix and writes its live rows to consecutive
-//      slots, each lane of the warp taking every 32nd of them, every value
-//      of a row loaded before any is stored.
+//      its own inclusive prefix and writes its live rows of rank below
+//      out_rows to consecutive slots, each lane of the warp taking every
+//      32nd of them, every value of a row loaded before any is stored.
 //   2. fill: a write-only launch reads the live total (the last tile's
-//      inclusive prefix) and writes every row from it on, lane after lane,
-//      with 16-byte stores, grid-stride.
+//      inclusive prefix) and writes every row from it (or from out_rows, if
+//      less) up to out_rows, lane after lane, with 16-byte stores,
+//      grid-stride.
 // A status word holds its flag in the top two bits (0 nothing yet, 1 the
 // aggregate, 2 the inclusive prefix) and the value below them, written and
 // read whole (volatile), so a reader sees a flag and its value together.
@@ -126,7 +128,7 @@ __device__ long long look_back(const unsigned long long* status, long long t, in
 // of its life waiting (ticket, flags, look-back, live rows), and the
 // others fill the time.
 __global__ void __launch_bounds__(kThreads, 5)
-    compact_kernel(Ops in, OutOps out, int n_ops, const uint32_t* live, long long n,
+    compact_kernel(Ops in, OutOps out, int n_ops, const uint32_t* live, long long n, long long out_rows,
                    unsigned long long* status, unsigned long long* ticket) {
   __shared__ long long s_tile, s_excl;
   __shared__ int s_warp[kWarps];
@@ -191,14 +193,17 @@ __global__ void __launch_bounds__(kThreads, 5)
   }
   __syncthreads();
 
-  // The warp's live rows go to consecutive slots from pos0, lane k taking
-  // ranks k, k+32, ...: every lane of a row loaded (unrolled over the most
-  // lanes there can be, so that the pointer arrays are indexed by
-  // constants), then stored, so the stores of a warp are coalesced.
+  // The warp's live rows go to consecutive slots from pos0, those below
+  // out_rows, lane k taking ranks k, k+32, ...: every lane of a row loaded
+  // (unrolled over the most lanes there can be, so that the pointer arrays
+  // are indexed by constants), then stored, so the stores of a warp are
+  // coalesced.
   long long pos0 = s_excl;
   for (int w = 0; w < warp; ++w) pos0 += s_warp[w];
   const long long row0 = w0 - shift;
-  for (int k = lane; k < c; k += 32) {
+  const long long room = out_rows - pos0;
+  const int take = room <= 0 ? 0 : (room < c ? (int)room : c);
+  for (int k = lane; k < take; k += 32) {
     const long long r = row0 + s_rows[warp][k];
     uint32_t x[lanes::kMaxOps];
 #pragma unroll
@@ -212,15 +217,16 @@ __global__ void __launch_bounds__(kThreads, 5)
   }
 }
 
-// Rows [live total, n) of every lane: the sentinel in the first num_keys
-// lanes, 0 in the rest.
+// Rows [min(live total, out_rows), out_rows) of every lane: the sentinel in
+// the first num_keys lanes, 0 in the rest.
 __global__ void __launch_bounds__(kFillThreads)
-    fill_kernel(OutOps out, int n_ops, int num_keys, long long n,
+    fill_kernel(OutOps out, int n_ops, int num_keys, long long out_rows,
                 const unsigned long long* last_status) {
-  const long long lt = (long long)(*last_status & kValue);
+  const long long total = (long long)(*last_status & kValue);
+  const long long lt = total < out_rows ? total : out_rows;
   const long long g = (long long)blockIdx.x * kFillThreads + threadIdx.x;
   const long long stride = (long long)gridDim.x * kFillThreads;
-  const long long len = n - lt;
+  const long long len = out_rows - lt;
 #pragma unroll
   for (int l = 0; l < lanes::kMaxOps; ++l) {
     if (l >= n_ops) break;
@@ -250,11 +256,13 @@ long long cl_num_tiles(const void* live, long long n) {
 }
 
 // Both launches.  in_ptrs / out_ptrs: host arrays of n_ops device pointers
-// to [n] lanes; live: [n] uint32; scratch: cl_num_tiles(live, n) + 1 int64
-// words, zero.  Returns a cudaError_t.
+// to [n] and [out_rows] lanes, 0 < out_rows <= n; live: [n] uint32;
+// scratch: cl_num_tiles(live, n) + 1 int64 words, zero.  Returns a
+// cudaError_t.
 int cl_compact(const void* const* in_ptrs, void* const* out_ptrs, int n_ops, int num_keys,
-               const void* live, long long n, void* scratch, void* stream) {
-  if (n <= 0 || n_ops < 1 || n_ops > lanes::kMaxOps || num_keys < 0 || num_keys > n_ops) {
+               const void* live, long long n, long long out_rows, void* scratch, void* stream) {
+  if (n <= 0 || out_rows <= 0 || out_rows > n || n_ops < 1 || n_ops > lanes::kMaxOps || num_keys < 0 ||
+      num_keys > n_ops) {
     return (int)cudaErrorInvalidValue;
   }
   const long long tiles = cl_num_tiles(live, n);
@@ -262,13 +270,13 @@ int cl_compact(const void* const* in_ptrs, void* const* out_ptrs, int n_ops, int
   const OutOps out = lanes::make_out_ops(out_ptrs, n_ops);
   auto s = static_cast<cudaStream_t>(stream);
   compact_kernel<<<(unsigned)tiles, kThreads, 0, s>>>(
-      lanes::make_ops(in_ptrs, n_ops), out, n_ops, static_cast<const uint32_t*>(live), n, status,
+      lanes::make_ops(in_ptrs, n_ops), out, n_ops, static_cast<const uint32_t*>(live), n, out_rows, status,
       status + tiles);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const long long want = lanes::num_tiles(n, 4LL * kFillThreads);
+  const long long want = lanes::num_tiles(out_rows, 4LL * kFillThreads);
   fill_kernel<<<(unsigned)(want < kFillBlocks ? want : kFillBlocks), kFillThreads, 0, s>>>(
-      out, n_ops, num_keys, n, status + tiles - 1);
+      out, n_ops, num_keys, out_rows, status + tiles - 1);
   return cudaGetLastError();
 }
 

@@ -20,7 +20,9 @@
 //     all-ones sentinel get 0 throughout.  Rows stay at their merged index.
 //   * Fold + compact (K1): one row per run whose key is not the sentinel
 //     and whose total is not 0, carrying the total, packed to the front;
-//     every row after them holds the sentinel key and count 0.
+//     every row after them holds the sentinel key and count 0.  The output
+//     is out_rows wide (at most na+nb): live rows from out_rows on are not
+//     written, and the live total counts them all.
 // Liveness comes from the count only, never from the key (dead B rows of
 // the descending raw sort carry all-zero keys, bit-identical to a genuine
 // A^k record, and count 0).
@@ -30,42 +32,46 @@
 // far below the card's compute-to-bandwidth ratio.  The sentinel is the
 // largest key, so the merged stream is S rows that are not the sentinel
 // (A's and B's, S = nsa + nsb) and then sentinel rows only; in the two-level
-// table most of A is its empty sentinel tail.  So K1 and K3 need to read
-// only the first S merged rows' inputs, and write every output row.
+// table most of A is its empty sentinel tail, and the raw region of K4
+// ends in sentinel rows.  So K1, K3 and K4 need to read only the first S
+// merged rows' inputs, and write every output row.
 //
-// K1 and K3: one ticketed pass with a decoupled look-back (Merrill &
+// K1, K3 and K4: one ticketed pass with a decoupled look-back (Merrill &
 // Garland, 2016) that carries the run fold (fold_kernel):
 //   1. A block takes a tile of kT merged rows from an atomic ticket, so
 //      every tile before it belongs to a block that has started.  The block
 //      of tile 0 first counts nsa and nsb (a warp-wide search each) and
 //      publishes them; every other block waits for them.
-//   2. A tile at or past S is all sentinel: the block writes sentinel keys
-//      and count 0 there with 16-byte stores (for K1 too: its live rows
-//      all lie below S).  It reads none of its rows.
+//   2. A tile at or past S is all sentinel: K3 and K4 write sentinel keys
+//      and count 0 there with 16-byte stores; K1 writes nothing (its live
+//      rows all lie below S, and its fill writes the rest).  It reads none
+//      of its rows.
 //   3. Otherwise the tile is rows [d0, e), e = min(d0+kT, S): two warps find
 //      the merge-path splits of d0 and e among the first nsa and nsb rows
 //      (32 probes a round, first around the proportional point), and warp 1
 //      loads the merged row e (when e < S) to tell whether the tile's last
-//      row ends a run.  The block stages A's window and B's (reversed) with
-//      16-byte loads, merges them in shared memory (kI rows a thread,
-//      registers, written back), folds each thread's rows into a Fold
-//      (below), then scans the threads' Folds (cub) into the tile's
-//      aggregate.
+//      row ends a run.  The block stages A's window and B's (reversed when
+//      B is stored descending) with 16-byte loads, merges them in shared
+//      memory (kI rows a thread, registers, written back), folds each
+//      thread's rows into a Fold (below), then scans the threads' Folds
+//      (cub) into the tile's aggregate.
 //   4. Warp 0 publishes the aggregate, looks back over the status of the
 //      tiles before (32 a round, one per lane) for their fold, publishes
 //      the tile's inclusive fold.  Then K1 packs its live rows in shared
-//      memory and writes them from their first output row on, K3 its rows
-//      with their folded counts at their merged index, both with 16-byte
-//      stores; the tile that holds row S-1 fills its rows from S on.
-//   5. K1: a write-only launch fills rows [live total, S) with the
-//      sentinel key and count 0 (16-byte stores); the block of the tile
-//      that holds row S-1 stores the live total.
+//      memory and writes those of rank below out_rows from their first
+//      output row on, K3 and K4 their rows with their folded counts at
+//      their merged index, all with 16-byte stores; for K3 and K4 the tile
+//      that holds row S-1 fills its rows from S on.
+//   5. K1: a write-only launch fills rows [min(live total, out_rows),
+//      out_rows) with the sentinel key and count 0 (16-byte stores); the
+//      block of the tile that holds row S-1 stores the live total.
 // A tile's first row is never taken as a run head: the fold of the rows
 // before it (the look-back's result) carries whatever was open.
 //
-// K4 and K5 keep the three passes of the first port (split kernel, per-tile
-// stats kernel with torch scans between, a write pass that merges again).
-// Blocks mask their own ragged edge, so n needs no alignment.
+// K5 keeps the two passes of the first port (a split kernel, then a write
+// pass that merges each tile): its sentinel rows carry payloads, so it
+// cannot skip them.  Blocks mask their own ragged edge, so n needs no
+// alignment.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -98,7 +104,7 @@ enum Variant {
 };
 
 // =========================================================================
-// K1 and K3: fold_kernel
+// K1, K3 and K4: fold_kernel
 // =========================================================================
 
 // Rows a thread and blocks an SM, per NL: a thread holds its kI merged rows
@@ -301,19 +307,25 @@ __device__ __forceinline__ bool row_le(const Ops& a, long long ra, const Ops& b,
   return true;
 }
 
+// B's stored row of its ascending row j: nb-1-j when B is stored
+// descending (kBDesc), j otherwise.
+template <bool kBDesc>
+__device__ __forceinline__ long long b_row(long long nb, long long j) {
+  return kBDesc ? nb - 1 - j : j;
+}
+
 // The merge-path split of diagonal d <= nsa + nsb (A rows among the first d
 // merged rows, A first on ties), computed by a whole warp among the rows
-// that are not the sentinel: B's ascending row j is its stored row nb-1-j.
-// Most splits lie near d's proportional point: first, lanes 0 and 1 test
-// whether kNear candidates around it bracket the split, and if they do the
-// search starts from those alone.
-template <int NL>
+// that are not the sentinel.  Most splits lie near d's proportional point:
+// first, lanes 0 and 1 test whether kNear candidates around it bracket the
+// split, and if they do the search starts from those alone.
+template <int NL, bool kBDesc>
 __device__ long long fold_split(const Ops& a, const Ops& b, long long nb, long long nsa, long long nsb,
                                 long long d) {
   const int lane = threadIdx.x % 32;
   long long lo = d > nsb ? d - nsb : 0, hi = d < nsa ? d : nsa;
   // A row i <= B's ascending row d-1-i
-  auto a_le_b = [&](long long i) { return row_le<NL>(a, i, b, nb - d + i); };
+  auto a_le_b = [&](long long i) { return row_le<NL>(a, i, b, b_row<kBDesc>(nb, d - 1 - i)); };
   constexpr long long kNear = 32768;
   if (hi - lo > kNear) {
     const long long est = (long long)((double)d * (double)nsa / (double)(nsa + nsb));
@@ -331,23 +343,25 @@ __device__ long long fold_split(const Ops& a, const Ops& b, long long nb, long l
 }
 
 // A's window (rows [a_row, a_row+la)) to tile rows [0, la) and B's window
-// (stored rows [b_row, b_row+lb), descending) reversed to tile rows [la,
-// la+lb), every lane: 16-byte loads, and one word at a time for the up to 3
-// rows before each window's first 16-byte boundary and after its last; all
-// of the block's loads are in flight before the first store to shared
-// memory.
-template <int NL, int kT>
+// (stored rows [b_first, b_first+lb)) to tile rows [la, la+lb), ascending:
+// reversed when B is stored descending (kBDesc).  Every lane: 16-byte
+// loads, and one word at a time for the up to 3 rows before each window's
+// first 16-byte boundary and after its last; all of the block's loads are
+// in flight before the first store to shared memory.
+template <int NL, int kT, bool kBDesc>
 __device__ __forceinline__ void stage_windows(const Ops& a, long long a_row, int la, const Ops& b,
-                                              long long b_row, int lb, const Tile<NL, kT>& sm) {
+                                              long long b_first, int lb, const Tile<NL, kT>& sm) {
   constexpr int kPer = kT / 4 / kFoldThreads;  // 16-byte loads per thread and lane, at most
-  const int last = la + lb - 1;                // tile row of B's stored row 0 of the window
+  const int last = la + lb - 1;                // tile row of B's stored row 0 of a descending window
+  // The tile row of the window's stored row r.
+  auto b_at = [&](int r) { return kBDesc ? last - r : la + r; };
   uint4 x[NL + 1][kPer];
   uint32_t edge[NL + 1];
   const int e = threadIdx.x;  // thread e < 12 moves edge row e%6 of window e/6
 #pragma unroll
   for (int l = 0; l <= NL; ++l) {
     const uint32_t* pa = a.p[l] + a_row;
-    const uint32_t* pb = b.p[l] + b_row;
+    const uint32_t* pb = b.p[l] + b_first;
     const int ha = lanes::head_rows(pa, la), hb = lanes::head_rows(pb, lb);
     const int va = (la - ha) >> 2, vb = (lb - hb) >> 2;
 #pragma unroll
@@ -367,7 +381,7 @@ __device__ __forceinline__ void stage_windows(const Ops& a, long long a_row, int
   }
 #pragma unroll
   for (int l = 0; l <= NL; ++l) {
-    const int ha = lanes::head_rows(a.p[l] + a_row, la), hb = lanes::head_rows(b.p[l] + b_row, lb);
+    const int ha = lanes::head_rows(a.p[l] + a_row, la), hb = lanes::head_rows(b.p[l] + b_first, lb);
     const int va = (la - ha) >> 2, vb = (lb - hb) >> 2;
 #pragma unroll
     for (int j = 0; j < kPer; ++j) {
@@ -379,17 +393,17 @@ __device__ __forceinline__ void stage_windows(const Ops& a, long long a_row, int
         sm.at(l, r + 2) = x[l][j].z;
         sm.at(l, r + 3) = x[l][j].w;
       } else if (k - va < vb) {
-        const int r = last - (hb + 4 * (k - va));
-        sm.at(l, r) = x[l][j].x;
-        sm.at(l, r - 1) = x[l][j].y;
-        sm.at(l, r - 2) = x[l][j].z;
-        sm.at(l, r - 3) = x[l][j].w;
+        const int r = hb + 4 * (k - va);
+        sm.at(l, b_at(r)) = x[l][j].x;
+        sm.at(l, b_at(r + 1)) = x[l][j].y;
+        sm.at(l, b_at(r + 2)) = x[l][j].z;
+        sm.at(l, b_at(r + 3)) = x[l][j].w;
       }
     }
     if (e < 12) {
       const int f = e % 6, len = e < 6 ? la : lb, h = e < 6 ? ha : hb, v = e < 6 ? va : vb;
       const int r = f < h ? f : f + 4 * v;
-      if (r < len) sm.at(l, e < 6 ? r : last - r) = edge[l];
+      if (r < len) sm.at(l, e < 6 ? r : b_at(r)) = edge[l];
     }
   }
 }
@@ -425,7 +439,7 @@ __device__ __forceinline__ bool keys_equal(const uint32_t* x, const uint32_t* y)
 
 // Merged row d (< nsa + nsb) from s, the split of d: A's row s or B's
 // ascending row d - s, the smaller, A on ties.
-template <int NL>
+template <int NL, bool kBDesc>
 __device__ __forceinline__ void merged_row(const Ops& a, const Ops& b, long long nb, long long nsa,
                                            long long nsb, long long d, long long s, uint32_t* key) {
   uint32_t ka[NL], kb[NL];
@@ -433,7 +447,7 @@ __device__ __forceinline__ void merged_row(const Ops& a, const Ops& b, long long
 #pragma unroll
   for (int l = 0; l < NL; ++l) {
     ka[l] = use_a ? __ldg(a.p[l] + s) : 0u;
-    kb[l] = use_b ? __ldg(b.p[l] + (nb - 1 - (d - s))) : 0u;
+    kb[l] = use_b ? __ldg(b.p[l] + b_row<kBDesc>(nb, d - s)) : 0u;
   }
   const bool pick_a = use_a && (!use_b || key_le<NL>(ka, kb));
 #pragma unroll
@@ -456,12 +470,15 @@ struct TileInfo {
   }
 };
 
-// K1 (kCompact) and K3, one tile a block.  (A persistent grid, each block
-// looping over tickets, was slower: its loop-carried state pushed the
-// staged loads and the merged rows into local memory.)
-template <int NL, bool kCompact>
+// K1 (kCompact, B stored descending), K3 (B stored descending) and K4 (B
+// ascending), one tile a block.  out_rows: K1's output width; K3 and K4
+// write na+nb rows.  (A persistent grid, each block looping over tickets,
+// was slower: its loop-carried state pushed the staged loads and the
+// merged rows into local memory.)
+template <int NL, bool kCompact, bool kBDesc>
 __global__ void __launch_bounds__(kFoldThreads, fold_blocks_per_sm<NL>())
-    fold_kernel(Ops a, Ops b, OutOps out, long long na, long long nb, unsigned long long* scratch) {
+    fold_kernel(Ops a, Ops b, OutOps out, long long na, long long nb, long long out_rows,
+                unsigned long long* scratch) {
   constexpr int kI = fold_items<NL>(), kT = fold_tile<NL>();
   extern __shared__ uint32_t smem[];
   __shared__ typename FoldScan::TempStorage scan_tmp;
@@ -483,9 +500,10 @@ __global__ void __launch_bounds__(kFoldThreads, fold_blocks_per_sm<NL>())
     if (warp == 0) {
       const long long c = warp_partition(0, na, [&](long long i) { return !is_sentinel<NL>(a, i); });
       if (lane == 0) s.nsa = c;
-    } else if (warp == 1) {  // B's sentinel rows come first in its stored order
-      const long long c = warp_partition(0, nb, [&](long long r) { return is_sentinel<NL>(b, r); });
-      if (lane == 0) s.nsb = nb - c;
+    } else if (warp == 1) {  // B's sentinel rows come first when it is stored descending
+      const long long c =
+          warp_partition(0, nb, [&](long long r) { return is_sentinel<NL>(b, r) == kBDesc; });
+      if (lane == 0) s.nsb = kBDesc ? nb - c : c;
     }
     __syncthreads();
     if (threadIdx.x == 0) {
@@ -507,9 +525,12 @@ __global__ void __launch_bounds__(kFoldThreads, fold_blocks_per_sm<NL>())
     __syncthreads();
   }
 
-  // 2. A sentinel tile.
+  // 2. A sentinel tile (K1's fill writes its output rows from the live
+  // total on).
   if (s.d0(kT) >= s.nsa + s.nsb) {
-    fill_sentinel<NL>(out, s.d0(kT), s.rows_end(kT, n) - s.d0(kT), threadIdx.x, kFoldThreads);
+    if (!kCompact) {
+      fill_sentinel<NL>(out, s.d0(kT), s.rows_end(kT, n) - s.d0(kT), threadIdx.x, kFoldThreads);
+    }
     return;
   }
 
@@ -518,19 +539,19 @@ __global__ void __launch_bounds__(kFoldThreads, fold_blocks_per_sm<NL>())
   // staging; the merge.
   if (warp < 2) {
     const long long e = s.end(kT);
-    const long long split = fold_split<NL>(a, b, nb, s.nsa, s.nsb, warp ? e : s.d0(kT));
+    const long long split = fold_split<NL, kBDesc>(a, b, nb, s.nsa, s.nsb, warp ? e : s.d0(kT));
     if (lane == 0) {
       s.split[warp] = split;
       if (warp == 1) {
         s.has_next = e < s.nsa + s.nsb;
-        if (s.has_next) merged_row<NL>(a, b, nb, s.nsa, s.nsb, e, split, s_next);
+        if (s.has_next) merged_row<NL, kBDesc>(a, b, nb, s.nsa, s.nsb, e, split, s_next);
       }
     }
   }
   __syncthreads();
-  {
+  {  // B's ascending rows [j0, j1)
     const long long i0 = s.split[0], i1 = s.split[1], j0 = s.d0(kT) - i0, j1 = s.end(kT) - i1;
-    stage_windows<NL, kT>(a, i0, (int)(i1 - i0), b, nb - j1, (int)(j1 - j0), sm);
+    stage_windows<NL, kT, kBDesc>(a, i0, (int)(i1 - i0), b, kBDesc ? nb - j1 : j0, (int)(j1 - j0), sm);
   }
   __syncthreads();
   const int len = (int)(s.end(kT) - s.d0(kT));
@@ -636,13 +657,18 @@ __global__ void __launch_bounds__(kFoldThreads, fold_blocks_per_sm<NL>())
       }
     }
     __syncthreads();
+    // The tile's live rows of rank below out_rows.
+    const long long room = out_rows - base;
+    const int len_out = room <= 0 ? 0 : (room < s_tile_live ? (int)room : s_tile_live);
+    if (len_out > 0) {
 #pragma unroll
-    for (int l = 0; l <= NL; ++l) {
-      store_lane<kFoldThreads>(out.p[l] + base, s_tile_live, [&](int r) { return sm.at(l, r); });
+      for (int l = 0; l <= NL; ++l) {
+        store_lane<kFoldThreads>(out.p[l] + base, len_out, [&](int r) { return sm.at(l, r); });
+      }
     }
   } else {
-    // K3: the folded counts replace the tile's counts, then every lane of
-    // rows [d0, e) at their merged index.
+    // K3 and K4: the folded counts replace the tile's counts, then every
+    // lane of rows [d0, e) at their merged index.
 #pragma unroll 1
     for (int q = 0; q < kI; ++q) {
       if (q < cnt) {
@@ -658,63 +684,52 @@ __global__ void __launch_bounds__(kFoldThreads, fold_blocks_per_sm<NL>())
     for (int l = 0; l <= NL; ++l) {
       store_lane<kFoldThreads>(out.p[l] + d0, len, [&](int r) { return sm.at(l, r); });
     }
-  }
-  // The rows from S on of the tile that holds row S-1.
-  if (s.rows_end(kT, n) > s.end(kT)) {
-    fill_sentinel<NL>(out, s.end(kT), s.rows_end(kT, n) - s.end(kT), threadIdx.x, kFoldThreads);
+    // The rows from S on of the tile that holds row S-1.
+    if (s.rows_end(kT, n) > s.end(kT)) {
+      fill_sentinel<NL>(out, s.end(kT), s.rows_end(kT, n) - s.end(kT), threadIdx.x, kFoldThreads);
+    }
   }
 }
 
-// K1's rows [live total, S): the sentinel key and count 0, grid-stride
-// (fold_kernel wrote the rows from S on).
+// K1's rows [min(live total, out_rows), out_rows): the sentinel key and
+// count 0, grid-stride.
 constexpr int kFillThreads = 256;
 constexpr long long kFillBlocks = 132 * 8;  // at most; the fill is grid-stride
 template <int NL>
 __global__ void __launch_bounds__(kFillThreads)
-    fill_kernel(OutOps out, const unsigned long long* hdr) {
-  const long long lt = (long long)hdr[kLiveTotal];
-  const long long S = (long long)((hdr[kNonSentA] & ~kKind) + (hdr[kNonSentB] & ~kKind));
-  fill_sentinel<NL>(out, lt, S - lt, (long long)blockIdx.x * kFillThreads + threadIdx.x,
+    fill_kernel(OutOps out, long long out_rows, const unsigned long long* hdr) {
+  const long long lt = (long long)hdr[kLiveTotal] < out_rows ? (long long)hdr[kLiveTotal] : out_rows;
+  fill_sentinel<NL>(out, lt, out_rows - lt, (long long)blockIdx.x * kFillThreads + threadIdx.x,
                     (long long)gridDim.x * kFillThreads);
 }
 
 template <int NL>
-int run_fold(const Ops& a, const Ops& b, const OutOps& out, bool compact, long long na, long long nb,
-             unsigned long long* scratch, cudaStream_t stream) {
+int run_fold(const Ops& a, const Ops& b, const OutOps& out, int variant, long long na, long long nb,
+             long long out_rows, unsigned long long* scratch, cudaStream_t stream) {
   constexpr int kSmem = fold_smem<NL>();
   const long long n = na + nb, tiles = lanes::num_tiles(n, fold_tile<NL>());
-  auto kernel = compact ? fold_kernel<NL, true> : fold_kernel<NL, false>;
+  const bool compact = variant == kMergeFoldCompactDesc;
+  auto kernel = compact                     ? fold_kernel<NL, true, true>
+                : variant == kMergeFoldDesc ? fold_kernel<NL, false, true>
+                                            : fold_kernel<NL, false, false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)tiles, kFoldThreads, kSmem, stream>>>(a, b, out, na, nb, scratch);
+  kernel<<<(unsigned)tiles, kFoldThreads, kSmem, stream>>>(a, b, out, na, nb, out_rows, scratch);
   err = cudaGetLastError();
-  if (err != cudaSuccess || !compact) return err;
-  const long long want = lanes::num_tiles(n, 4LL * kFillThreads);
-  fill_kernel<NL><<<(unsigned)(want < kFillBlocks ? want : kFillBlocks), kFillThreads, 0, stream>>>(out, scratch);
+  if (err != cudaSuccess || !compact || out_rows == 0) return err;
+  const long long want = lanes::num_tiles(out_rows, 4LL * kFillThreads);
+  fill_kernel<NL><<<(unsigned)(want < kFillBlocks ? want : kFillBlocks), kFillThreads, 0, stream>>>(
+      out, out_rows, scratch);
   return cudaGetLastError();
 }
 
 // =========================================================================
-// K4 and K5: split, stats (K4), write
+// K5: split, write
 // =========================================================================
 
 constexpr int kThreads = 256;
 constexpr int kItems = 4;
 constexpr int kTile = kThreads * kItems;  // merged rows per block
-
-__host__ __device__ constexpr bool folds(int v) { return v != kMerge; }
-
-// Rows of the per-tile stats array [kNumStats, num_tiles] (int64).
-enum Stat {
-  kTileSum = 0,  // sum of the tile's counts, mod 2^32
-  kHasEnd,       // 1 if a run ends inside the tile
-  kOpenSum,      // counts of the run open at the tile's start, up to its end here
-  kHasOpen,      // 1 if that open run ends inside the tile
-  kOpenSent,     // 1 if that open run's key is the sentinel
-  kLiveLocal,    // live rows among the runs that start inside the tile
-  kTail,         // counts after the tile's last run end (if it has one)
-  kNumStats
-};
 
 template <int NL>
 __device__ __forceinline__ void load_row(const Ops& o, long long i, uint32_t* key) {
@@ -725,35 +740,7 @@ __device__ __forceinline__ void load_row(const Ops& o, long long i, uint32_t* ke
 template <int NL>
 struct TileSmem {
   uint32_t ops[NL + 1][kTile];  // the tile's rows; merged in place
-  uint32_t prev[NL];            // merged row just before the tile
-  uint32_t next[NL];            // merged row just after the tile
-  int has_prev;
-  int has_next;
 };
-
-template <int NL>
-__device__ __forceinline__ bool smem_eq(const TileSmem<NL>& sm, int x, int y) {
-  bool eq = true;
-#pragma unroll
-  for (int l = 0; l < NL; ++l) eq &= sm.ops[l][x] == sm.ops[l][y];
-  return eq;
-}
-
-template <int NL>
-__device__ __forceinline__ bool smem_eq_key(const TileSmem<NL>& sm, int x, const uint32_t* key) {
-  bool eq = true;
-#pragma unroll
-  for (int l = 0; l < NL; ++l) eq &= sm.ops[l][x] == key[l];
-  return eq;
-}
-
-template <int NL>
-__device__ __forceinline__ bool smem_is_sentinel(const TileSmem<NL>& sm, int x) {
-  bool s = true;
-#pragma unroll
-  for (int l = 0; l < NL; ++l) s &= sm.ops[l][x] == kSentinel;
-  return s;
-}
 
 // Merge-path split of diagonal d: the number of A rows among the first d
 // merged rows (A first on equal keys).
@@ -773,8 +760,7 @@ __global__ void splits_kernel(Ops a, Ops b, long long na, long long nb, long lon
 }
 
 // Stages tile t's windows of A and B in shared memory and merges them in
-// place; records the merged stream's neighbours of the tile.  Returns the
-// tile's row count.
+// place.  Returns the tile's row count.
 template <int NL>
 __device__ int merge_tile(const Ops& a, const Ops& b, long long na, long long nb,
                           const long long* splits, long long t, TileSmem<NL>& sm) {
@@ -795,29 +781,6 @@ __device__ int merge_tile(const Ops& a, const Ops& b, long long na, long long nb
   for (int r = threadIdx.x; r < lb; r += kThreads) {
 #pragma unroll
     for (int l = 0; l <= NL; ++l) sm.ops[l][la + r] = b.p[l][j0 + r];
-  }
-  if (threadIdx.x == 0) {
-    // The row before the tile is the larger of the last consumed A and B
-    // rows; the row after it the smaller of the next unconsumed ones.
-    uint32_t ka[NL], kb[NL];
-    sm.has_prev = d0 > 0;
-    if (d0 > 0) {
-      const bool use_a = i0 > 0, use_b = j0 > 0;
-      if (use_a) load_row<NL>(a, i0 - 1, ka);
-      if (use_b) load_row<NL>(b, j0 - 1, kb);
-      const bool pick_a = use_a && (!use_b || key_le<NL>(kb, ka));
-#pragma unroll
-      for (int l = 0; l < NL; ++l) sm.prev[l] = pick_a ? ka[l] : kb[l];
-    }
-    sm.has_next = d1 < n;
-    if (d1 < n) {
-      const bool use_a = i1 < na, use_b = j1 < nb;
-      if (use_a) load_row<NL>(a, i1, ka);
-      if (use_b) load_row<NL>(b, j1, kb);
-      const bool pick_a = use_a && (!use_b || key_le<NL>(ka, kb));
-#pragma unroll
-      for (int l = 0; l < NL; ++l) sm.next[l] = pick_a ? ka[l] : kb[l];
-    }
   }
   __syncthreads();
 
@@ -849,139 +812,14 @@ __device__ int merge_tile(const Ops& a, const Ops& b, long long na, long long nb
   return len;
 }
 
-// Segmented-scan element: flag = a run head was seen; seg = counts since
-// the last head (or since the tile's start when flag is 0); tot = all
-// counts.  uint32 arithmetic wraps mod 2^32, as the counts do.
-struct Seg {
-  uint32_t flag, seg, tot;
-};
-struct SegOp {
-  __device__ __forceinline__ Seg operator()(const Seg& x, const Seg& y) const {
-    return Seg{x.flag | y.flag, y.flag ? y.seg : x.seg + y.seg, x.tot + y.tot};
-  }
-};
-using SegScan = cub::BlockScan<Seg, kThreads>;
-
-struct Items {
-  Seg seg[kItems];  // inclusive segmented scan at each of the thread's rows
-  bool end[kItems];
-  bool sent[kItems];
-};
-
-// Run heads/ends of the thread's rows and the block-wide segmented scan of
-// their counts.  Returns the block aggregate (tot = the tile's count sum).
-template <int NL>
-__device__ Seg scan_tile(const TileSmem<NL>& sm, int len, SegScan::TempStorage& tmp, Items& it) {
-  const int base = threadIdx.x * kItems;
-  Seg item[kItems];
-  Seg agg{0u, 0u, 0u};
-#pragma unroll
-  for (int q = 0; q < kItems; ++q) {
-    const int p = base + q;
-    bool head = false, end = false, sent = false;
-    uint32_t c = 0u;
-    if (p < len) {
-      head = p == 0 ? (!sm.has_prev || !smem_eq_key<NL>(sm, 0, sm.prev))
-                    : !smem_eq<NL>(sm, p - 1, p);
-      end = p == len - 1 ? (!sm.has_next || !smem_eq_key<NL>(sm, p, sm.next))
-                         : !smem_eq<NL>(sm, p, p + 1);
-      sent = smem_is_sentinel<NL>(sm, p);
-      c = sm.ops[NL][p];
-    }
-    it.end[q] = end;
-    it.sent[q] = sent;
-    item[q] = Seg{head ? 1u : 0u, c, c};
-    agg = SegOp()(agg, item[q]);
-  }
-  Seg excl, total;
-  SegScan(tmp).ExclusiveScan(agg, excl, Seg{0u, 0u, 0u}, SegOp(), total);
-  Seg run = excl;
-#pragma unroll
-  for (int q = 0; q < kItems; ++q) {
-    run = SegOp()(run, item[q]);
-    it.seg[q] = run;
-  }
-  return total;
-}
-
+// K5's second pass: each tile's merged rows at their merged index.
 template <int NL>
 __global__ void __launch_bounds__(kThreads)
-    stats_kernel(Ops a, Ops b, long long na, long long nb, const long long* splits,
-                 long long num_tiles, long long* stats) {
+    write_kernel(Ops a, Ops b, OutOps out, long long na, long long nb, const long long* splits) {
   __shared__ TileSmem<NL> sm;
-  __shared__ SegScan::TempStorage scan_tmp;
-  __shared__ int s_has_end, s_has_open, s_open_sent, s_live;
-  __shared__ uint32_t s_open_sum, s_tail;
-  const long long t = blockIdx.x;
-  if (threadIdx.x == 0) {
-    s_has_end = s_has_open = s_open_sent = s_live = 0;
-    s_open_sum = s_tail = 0u;
-  }
-  const int len = merge_tile<NL>(a, b, na, nb, splits, t, sm);
-  Items it;
-  const Seg total = scan_tile<NL>(sm, len, scan_tmp, it);
-  int live = 0;
-#pragma unroll
-  for (int q = 0; q < kItems; ++q) {
-    const int p = threadIdx.x * kItems + q;
-    if (p < len && it.end[q]) {
-      s_has_end = 1;
-      if (it.seg[q].flag) {
-        live += (!it.sent[q] && it.seg[q].seg != 0u) ? 1 : 0;
-      } else {
-        // At most one row per tile ends a run with no head in the tile.
-        s_has_open = 1;
-        s_open_sum = it.seg[q].seg;
-        s_open_sent = it.sent[q] ? 1 : 0;
-      }
-    }
-    if (p == len - 1) s_tail = it.end[q] ? 0u : it.seg[q].seg;
-  }
-  if (live) atomicAdd(&s_live, live);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    stats[kTileSum * num_tiles + t] = total.tot;
-    stats[kHasEnd * num_tiles + t] = s_has_end;
-    stats[kOpenSum * num_tiles + t] = s_open_sum;
-    stats[kHasOpen * num_tiles + t] = s_has_open;
-    stats[kOpenSent * num_tiles + t] = s_open_sent;
-    stats[kLiveLocal * num_tiles + t] = s_live;
-    stats[kTail * num_tiles + t] = s_tail;
-  }
-}
-
-// The last pass of K4 and K5 (carry: K4 only).
-template <int NL, int V>
-__global__ void __launch_bounds__(kThreads)
-    write_kernel(Ops a, Ops b, OutOps out, long long na, long long nb, const long long* splits,
-                 const long long* carry) {
-  __shared__ TileSmem<NL> sm;
-  __shared__ SegScan::TempStorage seg_tmp;
   const long long t = blockIdx.x;
   const long long d0 = t * kTile;
   const int len = merge_tile<NL>(a, b, na, nb, splits, t, sm);
-  if (folds(V)) {
-    Items it;
-    scan_tile<NL>(sm, len, seg_tmp, it);
-    const uint32_t carry_in = (uint32_t)carry[t];
-    uint32_t total[kItems];
-    bool alive[kItems];
-#pragma unroll
-    for (int q = 0; q < kItems; ++q) {
-      const int p = threadIdx.x * kItems + q;
-      total[q] = it.seg[q].flag ? it.seg[q].seg : carry_in + it.seg[q].seg;
-      alive[q] = p < len && it.end[q] && !it.sent[q];
-    }
-    __syncthreads();  // every row's count is read
-    // The folded counts replace the tile's counts in place.
-#pragma unroll
-    for (int q = 0; q < kItems; ++q) {
-      const int p = threadIdx.x * kItems + q;
-      if (p < len) sm.ops[NL][p] = alive[q] ? total[q] : 0u;
-    }
-    __syncthreads();
-  }
-  // The tile's merged rows at their merged index.
   for (int r = threadIdx.x; r < len; r += kThreads) {
 #pragma unroll
     for (int l = 0; l <= NL; ++l) out.p[l][d0 + r] = sm.ops[l][r];
@@ -1000,22 +838,9 @@ int run_splits(const Ops& a, const Ops& b, long long na, long long nb, long long
 }
 
 template <int NL>
-int run_stats(const Ops& a, const Ops& b, long long na, long long nb, const long long* splits,
-              long long* stats, cudaStream_t stream) {
-  const long long tiles = num_tiles(na + nb);
-  stats_kernel<NL><<<(unsigned)tiles, kThreads, 0, stream>>>(a, b, na, nb, splits, tiles, stats);
-  return cudaGetLastError();
-}
-
-template <int NL>
-int run_write(int variant, const Ops& a, const Ops& b, const OutOps& out, long long na, long long nb,
-              const long long* splits, const long long* carry, cudaStream_t stream) {
-  const unsigned tiles = (unsigned)num_tiles(na + nb);
-  if (variant == kMergeFold) {
-    write_kernel<NL, kMergeFold><<<tiles, kThreads, 0, stream>>>(a, b, out, na, nb, splits, carry);
-  } else {
-    write_kernel<NL, kMerge><<<tiles, kThreads, 0, stream>>>(a, b, out, na, nb, splits, carry);
-  }
+int run_write(const Ops& a, const Ops& b, const OutOps& out, long long na, long long nb,
+              const long long* splits, cudaStream_t stream) {
+  write_kernel<NL><<<(unsigned)num_tiles(na + nb), kThreads, 0, stream>>>(a, b, out, na, nb, splits);
   return cudaGetLastError();
 }
 
@@ -1052,11 +877,9 @@ int fold_tile_rows(int num_keys) {
 
 extern "C" {
 
-int mfc_num_stats() { return kNumStats; }
-
 int mfc_num_variants() { return kNumVariants; }
 
-// ---- K1 and K3 ----
+// ---- K1, K3 and K4 ----
 
 // Merged rows per tile of fold_kernel at num_keys key lanes; 0 for an
 // unsupported num_keys.
@@ -1068,36 +891,41 @@ long long mfc_fold_scratch_words(int num_keys, long long n) {
   return tile ? kHeaderWords + kStatusWords * lanes::num_tiles(n, tile) : -1;
 }
 
-// K1 (variant 0: fold_kernel, then fill_kernel) or K3 (variant 1:
-// fold_kernel), enqueued on `stream`.  a_ptrs / b_ptrs / out_ptrs: host
-// arrays of num_keys+1 device pointers (key lanes, then the value lane); A
-// ascending, B stored descending; out has na+nb rows a lane.  scratch:
-// mfc_fold_scratch_words int64 words, zero; K1 leaves its live row count at
-// word 4.  Returns a cudaError_t.
+// K1 (variant 0: fold_kernel, then fill_kernel), K3 (variant 1) or K4
+// (variant 2: fold_kernel), enqueued on `stream`.  a_ptrs / b_ptrs /
+// out_ptrs: host arrays of num_keys+1 device pointers (key lanes, then the
+// value lane); A ascending, B stored descending (K1, K3) or ascending (K4);
+// out has out_rows rows a lane, 0 <= out_rows <= na+nb for K1 and na+nb
+// for K3 and K4.  scratch: mfc_fold_scratch_words int64 words, zero; K1
+// leaves its live row count, all of them whatever out_rows, at word
+// kLiveTotal (3).  Returns a cudaError_t.
 int mfc_fold(const void* const* a_ptrs, const void* const* b_ptrs, void* const* out_ptrs, int variant,
-             int num_keys, long long na, long long nb, void* scratch, void* stream) {
-  if (variant != kMergeFoldCompactDesc && variant != kMergeFoldDesc) return (int)cudaErrorInvalidValue;
+             int num_keys, long long na, long long nb, long long out_rows, void* scratch, void* stream) {
+  if (variant != kMergeFoldCompactDesc && variant != kMergeFoldDesc && variant != kMergeFold) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (num_keys < 1 || num_keys > 8 || na < 0 || nb < 0 || na + nb == 0) return (int)cudaErrorInvalidValue;
+  if (out_rows < 0 || out_rows > na + nb || (variant != kMergeFoldCompactDesc && out_rows != na + nb)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const Ops a = lanes::make_ops(a_ptrs, num_keys + 1);
   const Ops b = lanes::make_ops(b_ptrs, num_keys + 1);
   const OutOps out = lanes::make_out_ops(out_ptrs, num_keys + 1);
   auto* sc = static_cast<unsigned long long*>(scratch);
   auto s = static_cast<cudaStream_t>(stream);
-  const bool compact = variant == kMergeFoldCompactDesc;
-#define MFC_FOLD_CALL(NL) run_fold<NL>(a, b, out, compact, na, nb, sc, s)
+#define MFC_FOLD_CALL(NL) run_fold<NL>(a, b, out, variant, na, nb, out_rows, sc, s)
   MFC_DISPATCH_NL(num_keys, MFC_FOLD_CALL)
 }
 
-// ---- K4 and K5 ----
+// ---- K5 ----
 
 int mfc_tile_rows() { return kTile; }
 
 // Pass 1.  a_ptrs / b_ptrs: host arrays of num_keys+1 device pointers (key
 // lanes, then the value lane), both ascending.  splits: [num_tiles+1]
 // int64.  Returns a cudaError_t.
-int mfc_splits(const void* const* a_ptrs, const void* const* b_ptrs, int variant, int num_keys,
-               long long na, long long nb, void* splits, void* stream) {
-  if (variant != kMergeFold && variant != kMerge) return (int)cudaErrorInvalidValue;
+int mfc_splits(const void* const* a_ptrs, const void* const* b_ptrs, int num_keys, long long na,
+               long long nb, void* splits, void* stream) {
   const Ops a = lanes::make_ops(a_ptrs, num_keys + 1);
   const Ops b = lanes::make_ops(b_ptrs, num_keys + 1);
   auto* sp = static_cast<long long*>(splits);
@@ -1106,32 +934,16 @@ int mfc_splits(const void* const* a_ptrs, const void* const* b_ptrs, int variant
   MFC_DISPATCH_NL(num_keys, MFC_SPLITS_CALL)
 }
 
-// Pass 2, K4 only.  stats: [kNumStats, num_tiles] int64.
-int mfc_stats(const void* const* a_ptrs, const void* const* b_ptrs, int variant, int num_keys,
-              long long na, long long nb, const void* splits, void* stats, void* stream) {
-  if (variant != kMergeFold) return (int)cudaErrorInvalidValue;
-  const Ops a = lanes::make_ops(a_ptrs, num_keys + 1);
-  const Ops b = lanes::make_ops(b_ptrs, num_keys + 1);
-  auto* sp = static_cast<const long long*>(splits);
-  auto* st = static_cast<long long*>(stats);
-  auto s = static_cast<cudaStream_t>(stream);
-#define MFC_STATS_CALL(NL) run_stats<NL>(a, b, na, nb, sp, st, s)
-  MFC_DISPATCH_NL(num_keys, MFC_STATS_CALL)
-}
-
-// Pass 3.  out_ptrs: host array of num_keys+1 device pointers to [na+nb]
-// rows; carry: [num_tiles] int64 (K4; may be null for K5).
-int mfc_write(const void* const* a_ptrs, const void* const* b_ptrs, void* const* out_ptrs, int variant,
-              int num_keys, long long na, long long nb, const void* splits, const void* carry,
-              void* stream) {
-  if (variant != kMergeFold && variant != kMerge) return (int)cudaErrorInvalidValue;
+// Pass 2.  out_ptrs: host array of num_keys+1 device pointers to [na+nb]
+// rows.
+int mfc_write(const void* const* a_ptrs, const void* const* b_ptrs, void* const* out_ptrs, int num_keys,
+              long long na, long long nb, const void* splits, void* stream) {
   const Ops a = lanes::make_ops(a_ptrs, num_keys + 1);
   const Ops b = lanes::make_ops(b_ptrs, num_keys + 1);
   const OutOps out = lanes::make_out_ops(out_ptrs, num_keys + 1);
   auto* sp = static_cast<const long long*>(splits);
-  auto* cy = static_cast<const long long*>(carry);
   auto s = static_cast<cudaStream_t>(stream);
-#define MFC_WRITE_CALL(NL) run_write<NL>(variant, a, b, out, na, nb, sp, cy, s)
+#define MFC_WRITE_CALL(NL) run_write<NL>(a, b, out, na, nb, sp, s)
   MFC_DISPATCH_NL(num_keys, MFC_WRITE_CALL)
 }
 

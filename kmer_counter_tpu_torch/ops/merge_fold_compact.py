@@ -12,10 +12,14 @@ Contract (both versions): ``a_ops`` is NL key lanes + a count, sorted
 ascending (count 0 = empty row); ``b_desc_ops`` is NL key lanes + 0/1
 liveness, sorted DESCENDING.  Every operand is a 1-D contiguous int32
 tensor holding uint32 bits.  The result is ``(out, live_count)``: ``out``
-is ``[NL+1, na+nb] int32`` (key lanes, then counts) with one row per
-distinct non-sentinel key whose total count mod 2^32 is not 0, ascending
-and dense at the front, and sentinel keys with count 0 after them;
-``live_count`` is a 0-d int64 tensor on the operands' device.
+is ``[NL+1, out_rows] int32`` (key lanes, then counts; ``out_rows`` <=
+na+nb, na+nb by default) with one row per distinct non-sentinel key whose
+total count mod 2^32 is not 0, ascending and dense at the front, as many
+as fit, and sentinel keys with count 0 after them — the JAX function's
+output cut to its first ``out_rows`` columns, as
+``table2._c3_merge_compact_bitonic`` cuts it to the prefix;
+``live_count`` is a 0-d int64 tensor on the operands' device that counts
+every such row, also those past ``out_rows``.
 """
 
 from __future__ import annotations
@@ -56,30 +60,41 @@ def check_operands(a_ops: Sequence[torch.Tensor], b_ops: Sequence[torch.Tensor],
                 raise ValueError("operands must be contiguous")
 
 
+def _out_rows(a_ops, b_ops, out_rows: int | None) -> int:
+    n = a_ops[0].shape[0] + b_ops[0].shape[0]
+    out_rows = n if out_rows is None else out_rows
+    if not 0 <= out_rows <= n:
+        raise ValueError(f"out_rows must be in [0, {n}], got {out_rows}")
+    return out_rows
+
+
 def merge_fold_compact(
-    a_ops: Sequence[torch.Tensor], b_desc_ops: Sequence[torch.Tensor], num_keys: int
+    a_ops: Sequence[torch.Tensor], b_desc_ops: Sequence[torch.Tensor], num_keys: int,
+    out_rows: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1: the kernel for CUDA tensors, the plain version for CPU tensors."""
     check_operands(a_ops, b_desc_ops, num_keys)
+    out_rows = _out_rows(a_ops, b_desc_ops, out_rows)
     device = a_ops[0].device
     if device.type == "cpu":
-        return merge_fold_compact_reference(a_ops, b_desc_ops, num_keys)
+        return merge_fold_compact_reference(a_ops, b_desc_ops, num_keys, out_rows)
     if device.type != "cuda":
         raise RuntimeError(f"merge_fold_compact has no kernel for device {device}")
-    return _launch(a_ops, b_desc_ops, num_keys)
+    return _launch(a_ops, b_desc_ops, num_keys, out_rows)
 
 
 def merge_fold_compact_reference(
-    a_ops: Sequence[torch.Tensor], b_desc_ops: Sequence[torch.Tensor], num_keys: int
+    a_ops: Sequence[torch.Tensor], b_desc_ops: Sequence[torch.Tensor], num_keys: int,
+    out_rows: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain torch K1: concatenate A and the flipped B, stable
     lexicographic sort, run boundaries, int64 run sums masked to 32 bits,
     boolean-mask compaction."""
     NL = num_keys
+    out_rows = _out_rows(a_ops, b_desc_ops, out_rows)
     device = a_ops[0].device
-    na, nb = a_ops[0].shape[0], b_desc_ops[0].shape[0]
-    n = na + nb
-    out = torch.full((NL + 1, n), SENTINEL, dtype=torch.int32, device=device)
+    n = a_ops[0].shape[0] + b_desc_ops[0].shape[0]
+    out = torch.full((NL + 1, out_rows), SENTINEL, dtype=torch.int32, device=device)
     out[NL] = 0
     if n == 0:
         return out, torch.zeros((), dtype=torch.int64, device=device)
@@ -92,21 +107,19 @@ def merge_fold_compact_reference(
     run_keys = s[:, head_idx]
     alive = ~(run_keys == SENTINEL).all(dim=0) & (totals != 0)
     live = int(alive.sum())
-    out[:NL, :live] = run_keys[:, alive]
-    out[NL, :live] = narrow(totals[alive])
+    kept = min(live, out_rows)
+    out[:NL, :kept] = run_keys[:, alive][:, :kept]
+    out[NL, :kept] = narrow(totals[alive][:kept])
     return out, torch.tensor(live, dtype=torch.int64, device=device)
 
 
 # ---- the CUDA kernel -------------------------------------------------------
 #
-# csrc/merge_fold_compact.cu holds two kernels: K1 and K3 run its one-pass
-# fold_kernel (K1 then its fill kernel), K4 and K5 the split, stats and
-# write passes; ``launch`` runs one variant.  K1 is used here, the other
-# three by ops.merge_runs.
+# csrc/merge_fold_compact.cu holds two designs: K1, K3 and K4 run its
+# one-pass fold_kernel (K1 then its fill kernel), K5 the split and write
+# passes; ``launch`` runs one variant.  K1 is used here, the other three by
+# ops.merge_runs.
 
-# Rows of the K4 stats array (enum Stat in the .cu source).
-(TILE_SUM, HAS_END, OPEN_SUM, HAS_OPEN, OPEN_SENT, LIVE_LOCAL, TAIL) = range(7)
-NUM_STATS = 7
 # The variants (enum Variant in the .cu source): the Pallas functions they
 # replace are merge_fold_compact_bitonic (K1), merge_sorted_runs_fold_bitonic
 # (K3), merge_sorted_runs_fold (K4) and merge_sorted_runs (K5).
@@ -122,104 +135,67 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_mfc_typed", False):
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         ptrs = ctypes.POINTER(ctypes.c_void_p)
-        lib.mfc_num_stats.argtypes, lib.mfc_num_stats.restype = [], i
         lib.mfc_num_variants.argtypes, lib.mfc_num_variants.restype = [], i
         lib.mfc_fold_tile_rows.argtypes, lib.mfc_fold_tile_rows.restype = [i], i
         lib.mfc_fold_scratch_words.argtypes, lib.mfc_fold_scratch_words.restype = [i, ll], ll
-        lib.mfc_fold.argtypes = [ptrs, ptrs, ptrs, i, i, ll, ll, vp, vp]
+        lib.mfc_fold.argtypes = [ptrs, ptrs, ptrs, i, i, ll, ll, ll, vp, vp]
         lib.mfc_fold.restype = i
         lib.mfc_tile_rows.argtypes, lib.mfc_tile_rows.restype = [], i
-        lib.mfc_splits.argtypes = [ptrs, ptrs, i, i, ll, ll, vp, vp]
+        lib.mfc_splits.argtypes = [ptrs, ptrs, i, ll, ll, vp, vp]
         lib.mfc_splits.restype = i
-        lib.mfc_stats.argtypes = [ptrs, ptrs, i, i, ll, ll, vp, vp, vp]
-        lib.mfc_stats.restype = i
-        lib.mfc_write.argtypes = [ptrs, ptrs, ptrs, i, i, ll, ll, vp, vp, vp]
+        lib.mfc_write.argtypes = [ptrs, ptrs, ptrs, i, ll, ll, vp, vp]
         lib.mfc_write.restype = i
-        if lib.mfc_num_stats() != NUM_STATS or lib.mfc_num_variants() != NUM_VARIANTS:
+        if lib.mfc_num_variants() != NUM_VARIANTS:
             raise RuntimeError("merge_fold_compact.cu and its wrapper disagree on its layout")
         lib._mfc_typed = True
     return lib
 
 
 def tile_rows(num_keys: int) -> int:
-    """Merged rows per tile of K1's and K3's kernel at num_keys key lanes
+    """Merged rows per tile of the K1/K3/K4 kernel at num_keys key lanes
     (builds the kernel if needed)."""
     return _lib().mfc_fold_tile_rows(num_keys)
 
 
-def tile_carry_and_offsets(stats: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per-tile scans between K4's stats and write passes.
-
-    From ``stats [NUM_STATS, T] int64`` (see the .cu source) returns
-    (carry ``[T]``: the counts, mod 2^32, that the run open at each
-    tile's start accumulated in earlier tiles; out_off ``[T]``: each
-    tile's first row among the live rows; live_total: 0-d).  The sequential
-    carry recurrence of the TPU kernel,
-    ``carry[t+1] = tail[t] if has_end[t] else carry[t] + tile_sum[t]``,
-    is solved in closed form with a cumsum and a cummax.
-    """
-    T = stats.shape[1]
-    tile_sum, has_end = stats[TILE_SUM], stats[HAS_END] != 0
-    excl = torch.cumsum(tile_sum, 0) - tile_sum
-    # carry[t] = excl[t] + (tail[u] - excl[u+1]) for the last tile u < t
-    # with a run end (0 when there is none).
-    reset = torch.where(has_end, stats[TAIL] - (excl + tile_sum), 0)
-    idx = torch.arange(T, device=stats.device)
-    last = torch.cummax(torch.where(has_end, idx, -1), 0).values
-    last = torch.cat([last.new_full((1,), -1), last[:-1]])
-    carry = (excl + torch.where(last >= 0, reset[last.clamp(min=0)], 0)) & 0xFFFFFFFF
-    open_total = (carry + stats[OPEN_SUM]) & 0xFFFFFFFF
-    open_alive = (stats[HAS_OPEN] != 0) & (stats[OPEN_SENT] == 0) & (open_total != 0)
-    live = stats[LIVE_LOCAL] + open_alive.to(torch.int64)
-    out_off = torch.cumsum(live, 0) - live
-    return carry, out_off, live.sum()
-
-
-def _launch(a_ops, b_ops, num_keys):
+def _launch(a_ops, b_ops, num_keys, out_rows):
     global launches
-    out, live_total = launch(K1, a_ops, b_ops, num_keys)
-    if out.shape[1]:
+    out, live_total = launch(K1, a_ops, b_ops, num_keys, out_rows)
+    if a_ops[0].shape[0] + b_ops[0].shape[0]:
         launches += 1
     return out, live_total
 
 
-def launch(variant: int, a_ops, b_ops, num_keys: int):
-    """Runs the kernel of ``variant`` on checked CUDA operands: K1 and K3
-    the one-pass kernel (K1 then its fill), on a zeroed scratch of status
-    words; K4 and K5 the splits, then (K4) the per-tile stats and the torch
-    scans, then the write pass.  Returns ``(out [NL+1, na+nb],
-    live_total)``; live_total is a 0-d int64 tensor for K1, else None."""
+def launch(variant: int, a_ops, b_ops, num_keys: int, out_rows: int | None = None):
+    """Runs the kernel of ``variant`` on checked CUDA operands: K1, K3 and
+    K4 the one-pass kernel (K1 then its fill), on a zeroed scratch of
+    status words; K5 the splits, then the write pass.  ``out_rows``: K1's
+    output width (na+nb by default; the others write na+nb rows).  Returns
+    ``(out [NL+1, out_rows], live_total)``; live_total is a 0-d int64
+    tensor for K1, else None."""
     lib = _lib()
     device = a_ops[0].device
     NL = num_keys
     na, nb = a_ops[0].shape[0], b_ops[0].shape[0]
     n = na + nb
-    out = torch.empty((NL + 1, n), dtype=torch.int32, device=device)
+    out_rows = n if out_rows is None else out_rows
+    out = torch.empty((NL + 1, out_rows), dtype=torch.int32, device=device)
     if n == 0:
         return out, (torch.zeros((), dtype=torch.int64, device=device) if variant == K1 else None)
     stream = torch.cuda.current_stream(device).cuda_stream
     a_ptrs, b_ptrs, out_ptrs = ptr_array(a_ops), ptr_array(b_ops), ptr_array(list(out.unbind(0)))
-    if variant in (K1, K3):
+    if variant != K5:
         scratch = torch.zeros(lib.mfc_fold_scratch_words(NL, n), dtype=torch.int64, device=device)
-        err = lib.mfc_fold(a_ptrs, b_ptrs, out_ptrs, variant, NL, na, nb, scratch.data_ptr(), stream)
+        err = lib.mfc_fold(a_ptrs, b_ptrs, out_ptrs, variant, NL, na, nb, out_rows, scratch.data_ptr(),
+                           stream)
         if err:
             raise RuntimeError(f"merge_fold_compact launch failed: cudaError {err}")
         return out, (scratch[LIVE_TOTAL_WORD] if variant == K1 else None)
     tiles = -(-n // lib.mfc_tile_rows())
     splits = torch.empty(tiles + 1, dtype=torch.int64, device=device)
-    err = lib.mfc_splits(a_ptrs, b_ptrs, variant, NL, na, nb, splits.data_ptr(), stream)
+    err = lib.mfc_splits(a_ptrs, b_ptrs, NL, na, nb, splits.data_ptr(), stream)
     if err:
         raise RuntimeError(f"merge_fold_compact splits launch failed: cudaError {err}")
-    carry = None
-    if variant == K4:
-        stats = torch.empty((NUM_STATS, tiles), dtype=torch.int64, device=device)
-        err = lib.mfc_stats(a_ptrs, b_ptrs, variant, NL, na, nb, splits.data_ptr(),
-                            stats.data_ptr(), stream)
-        if err:
-            raise RuntimeError(f"merge_fold_compact stats launch failed: cudaError {err}")
-        carry, _, _ = tile_carry_and_offsets(stats)
-    err = lib.mfc_write(a_ptrs, b_ptrs, out_ptrs, variant, NL, na, nb, splits.data_ptr(),
-                        None if carry is None else carry.data_ptr(), stream)
+    err = lib.mfc_write(a_ptrs, b_ptrs, out_ptrs, NL, na, nb, splits.data_ptr(), stream)
     if err:
         raise RuntimeError(f"merge_fold_compact write launch failed: cudaError {err}")
     return out, None

@@ -3,9 +3,10 @@ kmer_counter_tpu.ops.pallas_sort.merge_sorted_runs_fold_bitonic,
 merge_sorted_runs_fold and merge_sorted_runs.
 
 Each wrapper launches its variant of the hand-written CUDA kernels in
-``csrc/merge_fold_compact.cu`` (ops.merge_fold_compact.launch: K3 the
-one-pass kernel it shares with K1, K4 and K5 the split, stats and write
-passes), which replace the Pallas kernels
+``csrc/merge_fold_compact.cu`` (ops.merge_fold_compact.launch: K3 and K4
+the one-pass kernel they share with K1, B stored descending for K3 and
+ascending for K4; K5 the split and write passes, since its sentinel rows
+carry payloads and cannot be skipped), which replace the Pallas kernels
 ``pallas_sort._merge_pair_fold_bitonic_call``, ``_merge_pair_fold_call``
 and ``_merge_pair_call``, for CUDA tensors, and runs its plain torch
 version only for tensors on the CPU.  There is no fallback: on any other

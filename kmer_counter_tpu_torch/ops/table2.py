@@ -105,16 +105,47 @@ def _sort_raw(raw_lanes: torch.Tensor, raw_off: int):
     return s, counts
 
 
+# Rows that _fold_counts_in_place widens to int64 at once (128 MB a copy),
+# and that _count_rows counts at once.
+FOLD_PIECE = 1 << 24
+
+
+def _count_rows(n: int, rows_true) -> int:
+    """How many of rows [0, n) ``rows_true(p0, p1)`` (a bool tensor for rows
+    [p0, p1)) marks, FOLD_PIECE rows at a time: torch sums a bool tensor by
+    widening it to int64 first, 8 bytes a row of the whole table."""
+    return sum(int(rows_true(p, min(p + FOLD_PIECE, n)).sum()) for p in range(0, n, FOLD_PIECE))
+
+
 def _fold_counts_in_place(lanes: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     """Each run's total count (mod 2^32) on the run's HEAD row, 0 on its
     other rows and on sentinel rows; keys untouched (counterpart of
     ``table2._fold_counts_in_place``; K3/K4 put totals on the LAST row,
-    and after the compaction both give the same prefix)."""
-    head_idx = torch.nonzero(run_heads(lanes)).squeeze(1)
-    folded = torch.zeros_like(counts)
-    folded[head_idx] = narrow(run_totals(widen(counts), head_idx))
-    folded[(lanes == SENTINEL).all(dim=0)] = 0
-    return folded
+    and after the compaction both give the same prefix).
+
+    Unlike the JAX function it writes ``counts`` in place (and returns
+    it), so that the merged table is not copied.  The rows are sorted, so
+    the sentinel rows are the last ones: they are set to 0, and only the
+    rows before them are folded, FOLD_PIECE rows at a time; a run that
+    spans pieces gets the sums of its rows in later pieces added to its
+    head."""
+    S = _count_rows(counts.shape[0], lambda p0, p1: (lanes[:, p0:p1] != SENTINEL).any(dim=0))
+    counts[S:] = 0
+    head = -1  # the row of the run open at the end of the last piece
+    for p0 in range(0, S, FOLD_PIECE):
+        p1 = min(p0 + FOLD_PIECE, S)
+        lo = max(p0 - 1, 0)  # the row before the piece tells whether p0 starts a run
+        heads = torch.nonzero(run_heads(lanes[:, lo:p1])[p0 - lo :]).squeeze(1)
+        c = widen(counts[p0:p1])
+        csum = torch.cumsum(c, 0)
+        counts[p0:p1] = 0
+        lead = p1 - p0 if heads.numel() == 0 else int(heads[0])  # rows of the open run
+        if lead:
+            counts[head] = narrow(widen(counts[head]) + csum[lead - 1])
+        if heads.numel():
+            counts[p0 + heads] = narrow(run_totals(c, heads))
+            head = p0 + int(heads[-1])
+    return counts
 
 
 def consolidate3(
@@ -124,9 +155,9 @@ def consolidate3(
 
     Returns (table', live, lost): live = prefix rows in use afterwards;
     lost = live records that did not fit the prefix (must be 0: the
-    caller grows the prefix first).  The new prefix is a copy of the
-    first CP columns of the [NL+1, CP+CR] compacted rows, so the CR-column
-    tail is freed with it; the raw buffer is reused.
+    caller grows the prefix first).  The compacting kernel (K1 or K2)
+    writes only the CP columns of the new prefix, and counts every live
+    record; the raw buffer is reused.
 
     The keywords select the JAX function's variants, with its meanings:
     ``bitonic`` merges a descending raw sort and implies the fold; with
@@ -140,7 +171,7 @@ def consolidate3(
     a_ops = [*table.prefix_lanes.unbind(0), table.prefix_counts]
     if bitonic and fused_compact:
         s_desc, ones = _sort_raw_desc(table.raw_lanes, table.raw_off)
-        out, live_count = merge_fold_compact(a_ops, [*s_desc.unbind(0), ones], NL)
+        out, live_count = merge_fold_compact(a_ops, [*s_desc.unbind(0), ones], NL, out_rows=CP)
         del s_desc, ones
     else:
         if bitonic:
@@ -153,17 +184,15 @@ def consolidate3(
             merged = merge(a_ops, [*s.unbind(0), counts], NL)
             del s, counts
             if not fold_fused:
-                merged[NL] = _fold_counts_in_place(merged[:NL], merged[NL])
+                _fold_counts_in_place(merged[:NL], merged[NL])
         folded = merged[NL]
-        live_count = (folded != 0).sum()
-        out = compact_live(list(merged.unbind(0)), folded, NL)
+        live_count = _count_rows(folded.shape[0], lambda p0, p1: folded[p0:p1] != 0)
+        out = compact_live(list(merged.unbind(0)), folded, NL, out_rows=CP)
         del merged, folded
     live_count = int(live_count)
-    prefix = out[:, :CP].clone()
-    del out
     out_table = TwoLevelTable(
-        prefix_lanes=prefix[:NL],
-        prefix_counts=prefix[NL],
+        prefix_lanes=out[:NL],
+        prefix_counts=out[NL],
         raw_lanes=table.raw_lanes,
         raw_off=0,
         allt=table.allt,

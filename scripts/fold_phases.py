@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where a tile's time goes in the K1/K3 kernel (fold_kernel in
+"""Where a tile's time goes in the K1/K3/K4 kernel (fold_kernel in
 csrc/merge_fold_compact.cu), on one NVIDIA GPU.
 
     python3 scripts/fold_phases.py              # as the package launches it
@@ -9,9 +9,10 @@ Copies the package to _checkout/fold_phases/ (git-ignored) and edits the
 copy's kernel so that thread 0 of each block stores clock64() at each phase
 boundary of its tile (ticket and counts, splits, staging, merge, fold and
 scan, look-back, writes) and the global timer at its start, in scratch
-words after the status words.  Then it runs K1 and K3 on chip_smoke.py's
-operands at time_kernels.py's MAIN_LAUNCH (path-shaped and 80%-live) and
-K1 at 32M random rows, NL=2, and prints per phase the median, mean and 90th
+words after the status words.  Then it runs K1 (writing the prefix's na
+columns, as consolidate3 asks), K3 and K4 on chip_smoke.py's operands at
+time_kernels.py's MAIN_LAUNCH (path-shaped and 80%-live) and K1 at 32M
+random rows, NL=2, and prints per phase the median, mean and 90th
 percentile in SM clock cycles over the tiles that merged rows, the median
 of a sentinel tile, and the span of the tiles' start times.  --one-block
 asks for enough shared memory that one block runs on an SM at a time: the
@@ -37,16 +38,13 @@ EDITS = [
     ("  __syncthreads();\n\n  // 1. nsa and nsb",
      "  __syncthreads();\n  if (threadIdx.x == 0) { unsigned long long g; asm volatile(\"mov.u64 %0, %%globaltimer;\" "
      ": \"=l\"(g)); dbg[s.t * 8 + 7] = g; }\n" + stamp(0) + "\n  // 1. nsa and nsb"),
-    ("  {\n    const long long i0 = s.split[0], i1", stamp(1) + "  {\n    const long long i0 = s.split[0], i1"),
+    ("  {  // B's ascending rows [j0, j1)\n", stamp(1) + "  {  // B's ascending rows [j0, j1)\n"),
     ("  const int len = (int)(s.end(kT) - s.d0(kT));\n", stamp(2) + "  const int len = (int)(s.end(kT) - s.d0(kT));\n"),
     ("  // Run ends among the thread's rows", stamp(3) + "  // Run ends among the thread's rows"),
     ("  // 4. Publish, look back, publish.", stamp(4) + "  // 4. Publish, look back, publish."),
     ("  const Fold mine = combine(s_before, excl);", stamp(5) + "  const Fold mine = combine(s_before, excl);"),
-    ("    fill_sentinel<NL>(out, s.d0(kT), s.rows_end(kT, n) - s.d0(kT), threadIdx.x, kFoldThreads);\n    return;",
-     "    fill_sentinel<NL>(out, s.d0(kT), s.rows_end(kT, n) - s.d0(kT), threadIdx.x, kFoldThreads);\n"
-     + stamp(6) + "    return;"),
-    ("  // The rows from S on of the tile that holds row S-1.",
-     stamp(6) + "  // The rows from S on of the tile that holds row S-1."),
+    ("kFoldThreads);\n    }\n    return;\n", "kFoldThreads);\n    }\n" + stamp(6) + "    return;\n"),
+    ("  }\n}\n\n// K1's rows [min(live total", "  }\n" + stamp(6) + "}\n\n// K1's rows [min(live total"),
     ("  unsigned long long* status = scratch + kHeaderWords;\n",
      "  unsigned long long* status = scratch + kHeaderWords;\n"
      "  long long* dbg = (long long*)(status + kStatusWords * ((na + nb + kT - 1) / kT));\n"),
@@ -123,9 +121,13 @@ def main():
 
     NL, na, nb, *live = tk.MAIN_LAUNCH
     for mix in ("path", "random_80pct_live"):
-        a, b = cs.random_k1_operands(NL, na, nb, gen, device, live if mix == "path" else None)
-        phases(f"K1 main {mix}", lambda: mfc.merge_fold_compact(a, b, NL), NL, na + nb)
+        shaped = live if mix == "path" else None
+        a, b = cs.random_k1_operands(NL, na, nb, gen, device, shaped)
+        phases(f"K1 main {mix}", lambda: mfc.merge_fold_compact(a, b, NL, na), NL, na + nb)
         phases(f"K3 main {mix}", lambda: mr.merge_sorted_runs_fold_bitonic(a, b, NL), NL, na + nb)
+        del a, b
+        a, b = cs.random_merge_operands("merge_sorted_runs_fold", NL, na, nb, gen, device, shaped)
+        phases(f"K4 main {mix}", lambda: mr.merge_sorted_runs_fold(a, b, NL), NL, na + nb)
         del a, b
         torch.cuda.empty_cache()
     n = 32 << 20

@@ -23,13 +23,15 @@ source's nvcc report (registers, spills).
 
 import argparse
 import importlib.util
+import inspect
 import os
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # The largest launch of K1 in chip_smoke.py's main path (its third
 # consolidation), as its launch_shapes log it: (NL, na, nb, A's live rows,
-# B's live rows, B's live rows with the sentinel key).
+# B's live rows, B's live rows with the sentinel key); K1 writes na columns
+# there (the prefix's).
 MAIN_LAUNCH = (2, 166_666_500, 97_222_223, 4_599_964, 55_555_500, 21_626_652)
 
 
@@ -49,6 +51,7 @@ def main():
         raise SystemExit("time_kernels.py needs an NVIDIA GPU")
     from kmer_counter_tpu_torch import cuda_build
     from kmer_counter_tpu_torch.ops import lane_sort
+    from kmer_counter_tpu_torch.ops import merge_fold_compact as mfc
 
     if not lane_sort.__file__.startswith(root + os.sep):
         raise SystemExit(f"imported {lane_sort.__file__}, not the tree under {root}")
@@ -66,7 +69,10 @@ def main():
             cs.k2_random_shapes(device, gen)
         elif name == cs.K1["name"]:
             cs.k1_random_shapes(device, gen)
-            cs.k1_at_shape("main", MAIN_LAUNCH, gen, device)
+            # the prefix's columns, where the tree's K1 takes an output width
+            takes_width = "out_rows" in inspect.signature(mfc.merge_fold_compact).parameters
+            out_rows = MAIN_LAUNCH[1] if takes_width else None
+            cs.k1_at_shape("main", (*MAIN_LAUNCH, out_rows), gen, device)
         else:
             cs.merge_random_shapes(device, cases, gen, name)
             cs.merge_at_shape(cases, name, "main", MAIN_LAUNCH, gen, device)

@@ -9,6 +9,8 @@ chip_smoke.py).  Its cross-tile protocol (a chained scan with decoupled
 look-back: tickets, aggregate and inclusive-prefix status words, the
 look-back over them, then the fill from the live total) is modelled here
 in numpy, with the tiles completing in order and in a shuffled order.
+``out_rows`` (the output cut to the prefix's columns, as consolidate3
+asks for it) is held against the JAX kernel's output cut the same way.
 """
 
 from collections import Counter
@@ -28,16 +30,17 @@ CPU = torch.device("cpu")
 M = 0xFFFFFFFF
 
 
-def _port(ops, live, num_keys):
-    got = cl.compact_live([from_numpy(v, CPU) for v in ops], from_numpy(live, CPU), num_keys)
+def _port(ops, live, num_keys, out_rows=None):
+    got = cl.compact_live([from_numpy(v, CPU) for v in ops], from_numpy(live, CPU), num_keys, out_rows)
     return to_numpy(got)
 
 
-def _numpy(ops, live, num_keys):
-    keep = live != 0
-    out = np.zeros((len(ops), len(live)), np.uint32)
+def _numpy(ops, live, num_keys, out_rows=None):
+    out_rows = len(live) if out_rows is None else out_rows
+    rows = np.stack(ops)[:, live != 0][:, :out_rows]
+    out = np.zeros((len(ops), out_rows), np.uint32)
     out[:num_keys] = M
-    out[:, : keep.sum()] = np.stack(ops)[:, keep]
+    out[:, : rows.shape[1]] = rows
     return out
 
 
@@ -48,6 +51,32 @@ def test_plain_compact_matches_pallas(density, NL, tiles):
     want = ps.compact_live([jnp.asarray(v) for v in ops], jnp.asarray(live), num_keys=NL,
                            tile=TILE, interpret=True)
     np.testing.assert_array_equal(got, np.stack([np.asarray(v) for v in want]))
+
+
+@pytest.mark.parametrize("where", ["zero", "below_live", "at_live", "above_live"])
+def test_plain_compact_with_out_rows_matches_pallas_cut_to_the_prefix(where):
+    """What consolidate3 asks of K2: the output's first out_rows columns,
+    against the JAX kernel's output cut as _c3_compact cuts it ([:cp]);
+    out_rows below the live count is the consolidation that loses
+    records."""
+    ops, live = compact_case(np.random.default_rng(3), 2, 2 * TILE, 0.3)
+    n_live = int((live != 0).sum())
+    out_rows = {"zero": 0, "below_live": n_live // 2, "at_live": n_live, "above_live": TILE + 3}[where]
+    got = _port(ops, live, 2, out_rows)
+    want = ps.compact_live([jnp.asarray(v) for v in ops], jnp.asarray(live), num_keys=2, tile=TILE,
+                           interpret=True)
+    np.testing.assert_array_equal(got, np.stack([np.asarray(v)[:out_rows] for v in want]))
+
+
+@pytest.mark.parametrize("n", [1, 7, 4097])
+@pytest.mark.parametrize("density", [0.0, 0.5, 1.0])
+def test_plain_compact_with_out_rows_matches_numpy(n, density):
+    ops, live = compact_case(np.random.default_rng(n), 3, n, density)
+    n_live = int((live != 0).sum())
+    for out_rows in sorted({0, 1, n_live // 2, n_live, n} & set(range(n + 1))):
+        np.testing.assert_array_equal(_port(ops, live, 3, out_rows), _numpy(ops, live, 3, out_rows))
+    with pytest.raises(ValueError, match="out_rows"):
+        _port(ops, live, 3, n + 1)
 
 
 @pytest.mark.parametrize("n", [0, 1, 7, 1000, 4097, 12_345])
@@ -70,7 +99,7 @@ AGGREGATE, PREFIX = 1, 2  # status flags of a tile; 0: nothing published yet
 WINDOW = 32  # status words a look-back reads at once (one per lane of a warp)
 
 
-def _tile_block(t, T, shift, ops, live, status, out, stats, window_len):
+def _tile_block(t, T, shift, ops, live, status, out, stats, window_len, out_rows):
     """One block of the CUDA kernel on tile t, as a generator that yields
     wherever another block may run: it publishes its live count (tile 0
     its inclusive prefix at once), reads the status words of the
@@ -102,20 +131,23 @@ def _tile_block(t, T, shift, ops, live, status, out, stats, window_len):
     yield
     for r in rows:
         if live[r]:
-            out[:, excl] = ops[:, r]
+            if excl < out_rows:  # live rows of rank out_rows and above are not written
+                out[:, excl] = ops[:, r]
             excl += 1
 
 
-def _emulate_kernel(ops, live, T, resident=1, seed=0, shift=0, num_keys=2, window_len=WINDOW):
+def _emulate_kernel(ops, live, T, resident=1, seed=0, shift=0, num_keys=2, window_len=WINDOW, out_rows=None):
     """The CUDA kernel's protocol in numpy for tiles of T rows: tickets go
     out in tile order to at most `resident` blocks at once, and a block
     drawn at random (seeded) takes each next step; with resident=1 the
     tiles run one after another, in order.  Then the fill writes every row
-    from the last tile's inclusive prefix on.  ``window_len``: the tiles a
-    look-back round reads (the kernel's WINDOW; fewer make long walks
-    common).  Returns (out, stats)."""
+    from the last tile's inclusive prefix (or out_rows, if less) up to
+    out_rows (n by default).  ``window_len``: the tiles a look-back round
+    reads (the kernel's WINDOW; fewer make long walks common).  Returns
+    (out, stats)."""
     ops = np.stack(ops)
-    out = np.full_like(ops, 0x5A5A5A5A)  # no row the kernel leaves unwritten
+    out_rows = len(live) if out_rows is None else out_rows
+    out = np.full((len(ops), out_rows), 0x5A5A5A5A, np.uint32)  # no row the kernel leaves unwritten
     tiles = -(-(len(live) + shift) // T)
     status = [(0, 0)] * tiles
     stats = Counter()
@@ -123,7 +155,7 @@ def _emulate_kernel(ops, live, T, resident=1, seed=0, shift=0, num_keys=2, windo
     blocks, ticket = [], 0
     while blocks or ticket < tiles:
         while len(blocks) < resident and ticket < tiles:
-            blocks.append(_tile_block(ticket, T, shift, ops, live, status, out, stats, window_len))
+            blocks.append(_tile_block(ticket, T, shift, ops, live, status, out, stats, window_len, out_rows))
             ticket += 1
         k = int(rng.integers(len(blocks)))
         try:
@@ -132,8 +164,8 @@ def _emulate_kernel(ops, live, T, resident=1, seed=0, shift=0, num_keys=2, windo
             blocks.pop(k)
     flag, total = status[-1]
     assert flag == PREFIX
-    out[:num_keys, total:] = M
-    out[num_keys:, total:] = 0
+    out[:num_keys, min(total, out_rows):] = M
+    out[num_keys:, min(total, out_rows):] = 0
     return out, stats
 
 
@@ -163,6 +195,18 @@ def test_kernel_tile_logic_in_a_shuffled_order_matches_plain(T, density):
             assert stats["spins"] > 0
     if T <= 3:
         assert stats["windows"] > -(-5003 // T)  # some walks took more than one round
+
+
+@pytest.mark.parametrize("T", [3, 64, 4096])
+@pytest.mark.parametrize("where", ["zero", "below_live", "at_live", "above_live"])
+def test_kernel_tile_logic_with_out_rows_matches_plain(T, where):
+    """The protocol writing out_rows columns, shuffled, on flags a word
+    past a 16-byte boundary."""
+    ops, live = compact_case(np.random.default_rng(T), 2, 5000, 0.4)
+    n_live = int((live != 0).sum())
+    out_rows = {"zero": 0, "below_live": n_live // 3, "at_live": n_live, "above_live": 4999}[where]
+    got, _ = _emulate_kernel(ops, live, T, resident=300, seed=T, shift=1, out_rows=out_rows)
+    np.testing.assert_array_equal(got, _port(ops, live, 2, out_rows))
 
 
 @pytest.mark.parametrize(

@@ -22,10 +22,10 @@ import pytest
 import torch
 
 # Rows per merge tile of the CPU cases: the Pallas tile the JAX package's
-# interpret-mode tests use, and the rows per block of the K4/K5 CUDA passes.
+# interpret-mode tests use, and the rows per block of the K5 CUDA passes.
 TILE = 1024
 M = 0xFFFFFFFF
-# Merged rows per tile of the K1/K3 CUDA kernel (fold_kernel in
+# Merged rows per tile of the K1/K3/K4 CUDA kernel (fold_kernel in
 # csrc/merge_fold_compact.cu) at NL = 1..8.
 FOLD_TILE = {NL: 256 * (16 if NL <= 2 else 8) for NL in range(1, 9)}
 # Rows per leaf tile of the sort kernel (csrc/lane_sort.cu) at NL = 1..8,
@@ -139,7 +139,7 @@ EDGE_CASES = {
 }
 
 
-# Cases at the K1/K3 kernel's own tile (FOLD_TILE): sizes at its edges, the
+# Cases at the K1/K3/K4 kernel's own tile (FOLD_TILE): sizes at its edges, the
 # sentinel tail starting around a tile edge, a prefix that is almost all
 # sentinel tail (as the pre-grown two-level prefix is), an input with no
 # other key, keys next to the sentinel, a run over more tiles than a
@@ -352,17 +352,18 @@ def cuda():
     return torch.device("cuda")
 
 
-def _kernel_vs_plain(case, device):
+def _kernel_vs_plain(case, device, out_rows=None):
     from kmer_counter_tpu_torch.ops import merge_fold_compact as mfc
 
     a_ops, b_ops, NL = operands(case, device)
     before = mfc.launches
-    out, live = mfc.merge_fold_compact(a_ops, b_ops, NL)
+    out, live = mfc.merge_fold_compact(a_ops, b_ops, NL, out_rows)
     torch.cuda.synchronize()
     assert mfc.launches == before + (1 if a_ops[0].numel() + b_ops[0].numel() else 0)
-    want, want_live = mfc.merge_fold_compact_reference(a_ops, b_ops, NL)
+    want, want_live = mfc.merge_fold_compact_reference(a_ops, b_ops, NL, out_rows)
     assert int(live) == int(want_live)
     assert torch.equal(out, want)
+    return int(live)
 
 
 @pytest.mark.gpu
@@ -371,7 +372,7 @@ def test_kernel_tile_matches_case_tile(cuda):
 
     assert [mfc.tile_rows(NL) for NL in range(1, 9)] == [FOLD_TILE[NL] for NL in range(1, 9)]
     assert mfc.tile_rows(9) == 0
-    assert mfc._lib().mfc_tile_rows() == TILE  # the K4/K5 passes
+    assert mfc._lib().mfc_tile_rows() == TILE  # the K5 passes
 
 
 @pytest.mark.gpu
@@ -380,10 +381,17 @@ def test_kernel_edge_cases(cuda, name):
     _kernel_vs_plain(EDGE_CASES[name](np.random.default_rng(0)), cuda)
 
 
+# The kernels that run fold_kernel: K1, K3 and K4 (B ascending).
+FOLD_KERNELS = ["merge_fold_compact", "merge_sorted_runs_fold_bitonic", "merge_sorted_runs_fold"]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("kernel", ["merge_fold_compact", "merge_sorted_runs_fold_bitonic"])
+@pytest.mark.parametrize("kernel", FOLD_KERNELS)
 @pytest.mark.parametrize("name", sorted(FOLD_CASES))
 def test_fold_kernel_cases(cuda, kernel, name):
+    # K4 takes each case in its ascending layout (merge_case_layout): B's
+    # sentinel rows last, the sentinel tail one row before, at and after a
+    # tile edge, a run over 65 tiles, totals that wrap across tiles
     case = FOLD_CASES[name](np.random.default_rng(0))
     if kernel == "merge_fold_compact":
         _kernel_vs_plain(case, cuda)
@@ -391,9 +399,27 @@ def test_fold_kernel_cases(cuda, kernel, name):
         _merge_vs_plain(kernel, case, cuda)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("where", ["zero", "below_live", "at_live", "above_live", "all"])
+@pytest.mark.parametrize("name", ["n_fold_tile_+1", "prefix_97pct_sentinel", "totals_wrap_across_tiles",
+                                  "all_sentinel"])
+def test_k1_with_out_rows(cuda, name, where):
+    # the output cut to out_rows columns: live rows of rank out_rows and
+    # above dropped, the fill stopping at out_rows, the live count whole
+    from kmer_counter_tpu_torch.ops import merge_fold_compact as mfc
+
+    case = FOLD_CASES[name](np.random.default_rng(0))
+    a_ops, b_ops, NL = operands(case, cuda)
+    live = int(mfc.merge_fold_compact_reference(a_ops, b_ops, NL)[1])
+    n = a_ops[0].numel() + b_ops[0].numel()
+    out_rows = {"zero": 0, "below_live": live // 2, "at_live": live, "above_live": (live + n + 1) // 2,
+                "all": n}[where]
+    assert _kernel_vs_plain(case, cuda, out_rows) == live
+
+
 def fold_column_slices(case, device, start):
-    """K1/K3 operands whose lanes are column slices of wider tables, each
-    starting `start` words in (column_slices below)."""
+    """K1/K3/K4 operands whose lanes are column slices of wider tables,
+    each starting `start` words in (column_slices below)."""
     NL, a, ac, bd, bc = case
     a_keys, a_counts = column_slices(a, ac, device, start)
     b_keys, b_live = column_slices(bd, bc, device, start)
@@ -401,28 +427,32 @@ def fold_column_slices(case, device, start):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kernel", ["merge_fold_compact", "merge_sorted_runs_fold_bitonic"])
+@pytest.mark.parametrize("kernel", FOLD_KERNELS)
 @pytest.mark.parametrize("start", [1, 2, 3])
 @pytest.mark.parametrize("NL", [1, 2, 5])
 def test_fold_kernels_on_unaligned_column_slices(cuda, kernel, start, NL):
     # A's and B's lanes start past a 16-byte boundary, and na + nb (the
-    # output's row width) is no multiple of 4
+    # output's row width) is no multiple of 4; K1 also writes an odd
+    # out_rows below na + nb
     from kmer_counter_tpu_torch.ops import merge_fold_compact as mfc
     from kmer_counter_tpu_torch.ops import merge_runs as mr
 
     T = FOLD_TILE[NL]
     case = random_case(np.random.default_rng(start), NL, 2 * T + 1, 3 * T + 2 * start, a_live=0.3)
+    if kernel != "merge_fold_compact":  # K1 takes the case as it is, B stored descending
+        case = merge_case_layout(kernel, case)
     a_ops, b_ops, _ = fold_column_slices(case, cuda, start)
     assert all(v.data_ptr() % 16 for v in a_ops + b_ops)
     plain = [[v.contiguous() for v in side] for side in (a_ops, b_ops)]
     if kernel == "merge_fold_compact":
-        out, live = mfc.merge_fold_compact(a_ops, b_ops, NL)
-        want, want_live = mfc.merge_fold_compact_reference(*plain, NL)
-        assert int(live) == int(want_live)
+        for out_rows in (None, 2 * T + 1):
+            out, live = mfc.merge_fold_compact(a_ops, b_ops, NL, out_rows)
+            want, want_live = mfc.merge_fold_compact_reference(*plain, NL, out_rows)
+            assert int(live) == int(want_live)
+            assert torch.equal(out, want)
     else:
-        out = mr.merge_sorted_runs_fold_bitonic(a_ops, b_ops, NL)
-        want = mr.merge_sorted_runs_fold_bitonic_reference(*plain, NL)
-    assert torch.equal(out, want)
+        out = getattr(mr, kernel)(a_ops, b_ops, NL)
+        assert torch.equal(out, getattr(mr, kernel + "_reference")(*plain, NL))
 
 
 @pytest.mark.gpu
@@ -435,8 +465,11 @@ def test_k1_failed_launch_raises_and_never_falls_back(cuda, monkeypatch):
     lib = mfc._lib()
     out = torch.empty((3, 200), dtype=torch.int32, device=cuda)
     scratch = torch.zeros(64, dtype=torch.int64, device=cuda)
-    assert lib.mfc_fold(ptr_array(a_ops), ptr_array(b_ops), ptr_array(list(out)), mfc.K1, 9, 100, 100,
-                        scratch.data_ptr(), torch.cuda.current_stream().cuda_stream) != 0
+    stream = torch.cuda.current_stream().cuda_stream
+    # 9 key lanes; out_rows above na + nb; K4 with out_rows other than na + nb
+    for variant, num_keys, out_rows in ((mfc.K1, 9, 200), (mfc.K1, 2, 201), (mfc.K4, 2, 199)):
+        assert lib.mfc_fold(ptr_array(a_ops), ptr_array(b_ops), ptr_array(list(out)), variant, num_keys,
+                            100, 100, out_rows, scratch.data_ptr(), stream) != 0
 
     class Refusing:
         def __getattr__(self, name):
@@ -447,12 +480,20 @@ def test_k1_failed_launch_raises_and_never_falls_back(cuda, monkeypatch):
             return 9  # cudaErrorInvalidConfiguration
 
     monkeypatch.setattr(mfc, "_lib", Refusing)
-    before = (mfc.launches, mr.launches["merge_sorted_runs_fold_bitonic"])
+
+    def counts():
+        return (mfc.launches, mr.launches["merge_sorted_runs_fold_bitonic"],
+                mr.launches["merge_sorted_runs_fold"])
+
+    before = counts()
     with pytest.raises(RuntimeError, match="launch failed"):
         mfc.merge_fold_compact(a_ops, b_ops, NL)
     with pytest.raises(RuntimeError, match="launch failed"):
         mr.merge_sorted_runs_fold_bitonic(a_ops, b_ops, NL)
-    assert (mfc.launches, mr.launches["merge_sorted_runs_fold_bitonic"]) == before
+    a4, b4, _ = operands(ascending_case(random_case(np.random.default_rng(0), 2, 100, 100)), cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        mr.merge_sorted_runs_fold(a4, b4, NL)
+    assert counts() == before
 
 
 @pytest.mark.gpu
@@ -586,6 +627,28 @@ def test_compact_kernel_on_unaligned_lanes(cuda, density, start, n):
     rows = from_numpy(np.pad(np.stack([*ops, live]), ((0, 0), (start, 3))), cuda)[:, start : start + n]
     got = cl.compact_live(list(rows[:-1]), rows[-1], 2)
     assert torch.equal(got, cl.compact_live_reference(list(rows[:-1]), rows[-1], 2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("where", ["one", "below_live", "at_live", "above_live"])
+@pytest.mark.parametrize("n", [4097, 3 * COMPACT_TILE + 5, 1_000_003])
+def test_compact_kernel_with_out_rows(cuda, n, where):
+    # the output cut to out_rows columns, also on flags a word past a
+    # 16-byte boundary
+    from kmer_counter_tpu_torch.ops import compact_live as cl
+    from kmer_counter_tpu_torch.ops.u32 import from_numpy
+
+    ops, live = compact_case(np.random.default_rng(n), 2, n, 0.3)
+    n_live = int((live != 0).sum())
+    out_rows = {"one": 1, "below_live": n_live // 3, "at_live": n_live, "above_live": n - 1}[where]
+    rows = from_numpy(np.pad(np.stack([*ops, live]), ((0, 0), (1, 3))), cuda)[:, 1 : 1 + n]
+    for flags, operands_ in ((from_numpy(live, cuda), [from_numpy(v, cuda) for v in ops]),
+                             (rows[-1], list(rows[:-1]))):
+        before = cl.launches
+        got = cl.compact_live(operands_, flags, 2, out_rows)
+        torch.cuda.synchronize()
+        assert cl.launches == before + 1 and got.shape == (3, out_rows)
+        assert torch.equal(got, cl.compact_live_reference(operands_, flags, 2, out_rows))
 
 
 @pytest.mark.gpu

@@ -141,9 +141,9 @@ def test_cli_with_each_split_consolidation_matches_golden(tmp_path, rng, monkeyp
     calls = {"merge": 0, "compact_live": 0, "merge_fold_compact": 0}
 
     def counting(key, fn):
-        def call(*args):
+        def call(*args, **kw):
             calls[key] += 1
-            return fn(*args)
+            return fn(*args, **kw)
 
         return call
 

@@ -6,11 +6,11 @@ tensors, so its wrapper takes the plain version.  Exact equality of every
 output row, fill included, and of live_count.
 
 The CUDA kernels run only on the card (tests/test_torch_cuda.py,
-chip_smoke.py).  The cross-tile logic of the split passes — per-tile
-stats, then torch scans (``tile_carry_and_offsets``), then per-tile
-compaction; K4 runs them — is checked here against the plain K1 by
-computing the same per-tile numbers in numpy.  The one-pass kernel that
-runs K1 and K3 has its model in tests/test_torch_merge_lookback.py.
+chip_smoke.py).  The one-pass kernel that runs K1, K3 and K4 has its
+model in tests/test_torch_merge_lookback.py; here that model runs in K4's
+layout (B ascending) against the plain K1 and K4, and K1's ``out_rows``
+(the output cut to the prefix's columns) is held against the JAX kernel's
+output cut the same way.
 """
 
 import jax.numpy as jnp
@@ -24,6 +24,7 @@ from kmer_counter_tpu_torch.ops import merge_fold_compact as mfc
 from kmer_counter_tpu_torch.ops.u32 import to_numpy
 
 from tests.test_torch_cuda import EDGE_CASES, TILE, operands, random_case
+from tests.test_torch_merge_lookback import check_model
 
 CPU = torch.device("cpu")
 M = 0xFFFFFFFF
@@ -41,9 +42,9 @@ def _jax_k1(case):
     return np.stack([np.asarray(o) for o in out]), int(live)
 
 
-def _port_k1(case):
+def _port_k1(case, out_rows=None):
     a_ops, b_ops, NL = operands(case, CPU)
-    out, live = mfc.merge_fold_compact(a_ops, b_ops, NL)
+    out, live = mfc.merge_fold_compact(a_ops, b_ops, NL, out_rows)
     return to_numpy(out), int(live)
 
 
@@ -108,71 +109,41 @@ def test_jax_k1_over_counts_after_grow2_zero_padding():
     _check_vs_jax((1, a_sent, ac, b[None], bc))
 
 
-def tile_scan(case, T):
-    """The merge and the per-tile scan of the CUDA kernel's fold variants
-    in numpy for a tile of T rows (tile t holds merged rows [t*T,
-    (t+1)*T)): the merged keys ``[n, NL]`` and counts, run ends, sentinel
-    rows, each row's (flag, seg) of the block's segmented scan, and the
-    per-tile stats as stats_kernel writes them."""
-    NL, a, ac, bd, bc = case
-    keys = np.concatenate([a, bd[:, ::-1]], 1).T
-    cnt = np.concatenate([ac, bc[::-1]]).astype(np.int64)
-    order = np.lexsort(keys.T[::-1])
-    keys, cnt = keys[order], cnt[order]
-    n = len(cnt)
-    differs = (keys[1:] != keys[:-1]).any(axis=1)
-    head = np.concatenate([[True], differs])
-    end = np.concatenate([differs, [True]])
-    sent = (keys == M).all(axis=1)
-    tiles = -(-n // T)
-    stats = np.zeros((mfc.NUM_STATS, tiles), np.int64)
-    rows = []  # per row: (flag, seg) of the block's segmented scan
-    for t in range(tiles):
-        flag = seg = tot = 0
-        for p in range(t * T, min(t * T + T, n)):
-            if head[p]:
-                flag, seg = 1, 0
-            seg = (seg + cnt[p]) & M
-            tot = (tot + cnt[p]) & M
-            rows.append((flag, seg))
-            if end[p]:
-                stats[mfc.HAS_END, t] = 1
-                if flag:
-                    stats[mfc.LIVE_LOCAL, t] += int(not sent[p] and seg != 0)
-                else:
-                    stats[[mfc.HAS_OPEN, mfc.OPEN_SUM, mfc.OPEN_SENT], t] = [1, seg, sent[p]]
-            if p == min(t * T + T, n) - 1:
-                stats[mfc.TAIL, t] = 0 if end[p] else seg
-        stats[mfc.TILE_SUM, t] = tot
-    return keys, cnt, end, sent, rows, stats
+@pytest.mark.parametrize("where", ["below_live", "at_live", "above_live"])
+def test_plain_k1_with_out_rows_matches_pallas_cut_to_the_prefix(where):
+    """What consolidate3 asks of K1: the output's first out_rows columns
+    and the count of every live row, against the JAX kernel's output cut as
+    _c3_merge_compact_bitonic cuts it ([:cp]); out_rows below the live
+    count is the consolidation that loses records."""
+    case = random_case(np.random.default_rng(11), 2, TILE, TILE, a_live=0.5)
+    want, want_live = _jax_k1(case)
+    out_rows = {"below_live": want_live // 3, "at_live": want_live, "above_live": TILE + 5}[where]
+    got, got_live = _port_k1(case, out_rows)
+    assert got_live == want_live and got.shape == (3, out_rows)
+    np.testing.assert_array_equal(got, want[:, :out_rows])
 
 
-def _emulate_kernel(case, T):
-    """K1's passes in numpy for a tile of T rows: tile_scan, then
-    mfc.tile_carry_and_offsets, then compaction as the write pass does it."""
-    NL = case[0]
-    keys, _, end, sent, rows, stats = tile_scan(case, T)
-    n, tiles = len(rows), stats.shape[1]
-    carry, out_off, live_total = mfc.tile_carry_and_offsets(torch.from_numpy(stats))
-    out = np.full((NL + 1, n), M, np.uint32)
-    out[NL] = 0
-    for t in range(tiles):
-        pos = int(out_off[t])
-        for p in range(t * T, min(t * T + T, n)):
-            flag, seg = rows[p]
-            total = seg if flag else (int(carry[t]) + seg) & M
-            if end[p] and not sent[p] and total != 0:
-                out[:NL, pos], out[NL, pos] = keys[p], total
-                pos += 1
-    return out, int(live_total)
+@pytest.mark.parametrize("name", ["random", *sorted(EDGE_CASES)])
+def test_plain_k1_with_out_rows_is_the_full_output_cut(name):
+    rng = np.random.default_rng(7)
+    case = random_case(rng, 3, 700, 900) if name == "random" else EDGE_CASES[name](rng)
+    full, live = _port_k1(case)
+    for out_rows in sorted({0, 1, live // 2, live, live + 1, full.shape[1]} & set(range(full.shape[1] + 1))):
+        got, got_live = _port_k1(case, out_rows)
+        assert got_live == live
+        np.testing.assert_array_equal(got, full[:, :out_rows])
+    a_ops, b_ops, NL = operands(case, CPU)
+    with pytest.raises(ValueError, match="out_rows"):
+        mfc.merge_fold_compact(a_ops, b_ops, NL, full.shape[1] + 1)
 
 
 @pytest.mark.parametrize("T", [1, 3, 64, TILE])
 @pytest.mark.parametrize("name", ["random", *sorted(EDGE_CASES)])
 def test_kernel_tile_logic_matches_plain(name, T):
+    """The one-pass kernel's model in K4's layout (B ascending, sentinel
+    rows last), tiles in order: its compacted output against the plain K1,
+    its folded output against the plain K4."""
     rng = np.random.default_rng(T)
     case = random_case(rng, 3, 700, 900) if name == "random" else EDGE_CASES[name](rng)
-    got, got_live = _emulate_kernel(case, T)
-    want, want_live = _port_k1(case)
-    assert got_live == want_live
-    np.testing.assert_array_equal(got, want)
+    _, stats = check_model(case, T, b_desc=False)
+    assert stats["spins"] == 0

@@ -8,8 +8,9 @@ bit; K5 leaves the order among equal keys to the kernel, so its keys must
 match bit for bit and its payloads as a multiset per key.
 
 The CUDA kernels run only on the card (tests/test_torch_cuda.py,
-chip_smoke.py).  Their cross-tile logic is checked here in numpy against
-the plain versions, as tests/test_torch_merge_fold_compact.py does for K1.
+chip_smoke.py).  K3 and K4 run the one-pass kernel of K1, whose numpy
+model (tests/test_torch_merge_lookback.py) is held here in K4's layout
+against the plain K4, with the tiles completing in a shuffled order.
 """
 
 import jax.numpy as jnp
@@ -18,12 +19,11 @@ import pytest
 import torch
 
 from kmer_counter_tpu.ops import pallas_sort as ps
-from kmer_counter_tpu_torch.ops import merge_fold_compact as mfc
 from kmer_counter_tpu_torch.ops import merge_runs as mr
 from kmer_counter_tpu_torch.ops.u32 import to_numpy
 
 from tests.test_torch_cuda import EDGE_CASES, TILE, ascending_case, operands, random_case
-from tests.test_torch_merge_fold_compact import tile_scan
+from tests.test_torch_merge_lookback import check_model
 
 CPU = torch.device("cpu")
 M = 0xFFFFFFFF
@@ -159,28 +159,16 @@ def test_jax_k5_loses_all_ones_payload_port_keeps_it():
     assert sorted(port[1, port[0] == M]) == want_ones
 
 
-def _emulate_fold_write(case, T):
-    """The CUDA kernel's fold variants (K3/K4) in numpy for a tile of T
-    rows: per-tile stats, mfc.tile_carry_and_offsets, then each row's
-    folded count at its merged index, as write_kernel computes them."""
-    keys, _, end, sent, rows, stats = tile_scan(case, T)
-    carry, _, _ = mfc.tile_carry_and_offsets(torch.from_numpy(stats))
-    out = np.zeros(len(rows), np.uint32)
-    for p, (flag, seg) in enumerate(rows):
-        total = seg if flag else (int(carry[p // T]) + seg) & M
-        if end[p] and not sent[p]:
-            out[p] = total
-    return np.vstack([keys.T, out[None]])
-
-
 @pytest.mark.parametrize("T", [1, 3, 64, TILE])
 @pytest.mark.parametrize("name", ["random", *sorted(CASES), *sorted(MORE_CASES)])
 def test_kernel_fold_tile_logic_matches_plain(name, T):
+    """K4 on the one-pass kernel: its model with B ascending (sentinel rows
+    last), 300 blocks resident in a shuffled order, against the plain K4
+    (and its compacted output against the plain K1)."""
     rng = np.random.default_rng(T)
     build = {**CASES, **MORE_CASES}.get(name)
     case = random_case(rng, 3, 700, 900) if build is None else build(rng)
-    np.testing.assert_array_equal(_emulate_fold_write(case, T),
-                                  _port(mr.merge_sorted_runs_fold_bitonic, case))
+    check_model(case, T, b_desc=False, resident=300, seed=T)
 
 
 @pytest.mark.parametrize("fn", [mr.merge_sorted_runs_fold_bitonic, mr.merge_sorted_runs_fold,

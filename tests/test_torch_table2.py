@@ -308,3 +308,56 @@ def test_split_variant_helpers_match_jax(rng):
     folded = t2._fold_counts_in_place(s, from_numpy(counts, CPU))
     want = jt2._fold_counts_in_place(jnp.asarray(to_numpy(s)), jnp.asarray(counts))
     np.testing.assert_array_equal(to_numpy(folded), np.asarray(want))
+
+
+@pytest.mark.parametrize("variant", sorted(CONSOLIDATE_VARIANTS))
+def test_consolidate3_that_loses_records_matches_jax(rng, variant):
+    """More live records than prefix slots: each variant's compacting
+    kernel writes only the CP prefix columns, and live, lost and the prefix
+    equal the JAX consolidate3's (Pallas in interpret mode, one 64K tile)."""
+    CP, CR = 1024, 64512  # CP + CR == pallas_sort.TILE
+    keys = np.unique(rng.integers(0, 2**32 - 1, 4000, dtype=np.uint64).astype(np.uint32))
+    prefix = np.sort(rng.choice(keys, 600, replace=False))
+    pl = np.full((1, CP), 0xFFFFFFFF, np.uint32)
+    pc = np.zeros(CP, np.uint32)
+    pl[0, :600], pc[:600] = prefix, rng.integers(1, 6, 600)
+    raw = np.zeros((1, CR), np.uint32)
+    raw_off = 5000
+    raw[0, :raw_off] = rng.choice(keys, raw_off)
+    raw[0, rng.integers(0, raw_off, 50)] = 0xFFFFFFFF  # masked windows
+    table = t2.table_from_numpy(pl, pc, raw, raw_off, 0, CPU)
+    kw = CONSOLIDATE_VARIANTS[variant]
+    want, want_live, want_lost = jt2.consolidate3(_jax_table(table), _interpret=True, **kw)
+    got, live, lost = t2.consolidate3(table, **kw)
+    assert (live, lost) == (int(want_live), int(want_lost)) and live == CP and lost > 0
+    np.testing.assert_array_equal(t2.table_to_numpy(got)[0], np.asarray(want.prefix_lanes))
+    np.testing.assert_array_equal(t2.table_to_numpy(got)[1], np.asarray(want.prefix_counts))
+
+
+def _sorted_with_counts(rng, NL, n, n_sent, run_len):
+    """Sorted keys [NL, n] in runs of up to run_len rows, the last n_sent
+    rows the sentinel, and uint32 counts (a tenth near 2^32, so totals
+    wrap)."""
+    keys = np.sort(rng.integers(0, max(n // run_len, 1), n)).astype(np.uint32)
+    lanes = np.zeros((NL, n), np.uint32)
+    lanes[-1] = keys
+    lanes[:, n - n_sent :] = 0xFFFFFFFF
+    counts = rng.integers(0, 6, n).astype(np.uint32)
+    counts[rng.random(n) < 0.1] = rng.integers(2**31, 2**32, dtype=np.uint64)
+    return lanes, counts
+
+
+@pytest.mark.parametrize("piece", [1, 3, 64, 1 << 24])
+@pytest.mark.parametrize("shape", [(1, 500, 40, 3), (2, 777, 0, 50), (1, 300, 300, 5), (2, 1000, 1, 400)])
+def test_fold_in_pieces_matches_jax(rng, monkeypatch, piece, shape):
+    """K5's fold (the split variant without a folding merge), in place and
+    piece by piece over the rows before the sentinel tail, against the JAX
+    _fold_counts_in_place: runs longer than a piece, totals that wrap, no
+    sentinel tail, only sentinel rows."""
+    monkeypatch.setattr(t2, "FOLD_PIECE", piece)
+    lanes, counts = _sorted_with_counts(rng, *shape)
+    port_counts = from_numpy(counts, CPU)
+    folded = t2._fold_counts_in_place(from_numpy(lanes, CPU), port_counts)
+    assert folded is port_counts  # written in place
+    want = jt2._fold_counts_in_place(jnp.asarray(lanes), jnp.asarray(counts))
+    np.testing.assert_array_equal(to_numpy(folded), np.asarray(want))
