@@ -34,7 +34,32 @@ and prints no result):
                 (the merge and K2 at least twice each, K1 none), launch
                 shapes, peak device memory (at most gpuMemoryLimit); each
                 dump byte-identical to the NumPy count
-  6. kernel   — each kernel against its plain torch version on the card:
+  6. spill    — the CLI counts 2M reads x 100 bp sampled from a 200-Mbase
+                genome (about 10^8 distinct k-mers) at k=31 canonical under
+                gpuMemoryLimit=2e9 with tempFileLocation set
+                (noOfMergersAtOnce=2, noOfMergeThreads=2), once with each
+                table ("spill", "spill_one"): at least two runs spilled
+                before the final one, the launches (K1 and the sort; the
+                sort), each run's peak device memory at most 2e9, the dump
+                byte-identical to the NumPy count; logs each run file
+                (records, bytes), each host merge (the native one: the
+                phase raises if native/libkmer_io.so is not built) and the
+                timers.  The phase's reads are its own (the input line
+                names them)
+  7. resume   — each spill run again with checkpointDir and
+                checkpointEvery=1; a wrapper stops it right after the
+                snapshot of the first consolidation that follows a spill
+                (one-level: right after the spill that follows that
+                snapshot, whose rows it holds), and a second run with the same checkpointDir and
+                tempFileLocation resumes it ("resume", "resume_one"). From
+                the second run itself: the reads it counted are all but
+                the snapshot's, it takes fewer chunks than the run without
+                resume, its merges read every run the snapshot lists, the
+                runs it writes are numbered after them, and (one-level) its
+                first run is the snapshot's rows, which would pass the cap
+                in a table with room for a chunk; its peak device memory is
+                at most 2e9 and its dump byte-identical to the NumPy count
+  8. kernel   — each kernel against its plain torch version on the card:
                 K1, K2, K3 and K4 bit-exact, and the sort and K5 with
                 bit-exact keys and the same payloads under each key, at
                 NL = 1, 2, 4, 7 and about 8M rows (K1, K3 and the sort also
@@ -42,7 +67,7 @@ and prints no result):
                 merges also at the K1/K3 kernel's tile, the sort's also on
                 lanes sliced from a wider table, K2's also on rows a word
                 past a 16-byte boundary) and at each launch shape of phases
-                3-5, on operands shaped as that path gives them (the
+                3-7, on operands shaped as that path gives them (the
                 prefix's live rows and the raw region's liveness as the path
                 had them; K1 and the merges also on operands of the same
                 size with an 80%-live prefix, as earlier runs timed them;
@@ -56,15 +81,18 @@ and prints no result):
                 only the rows that are not the sentinel; K1 and K2 write
                 their output's width, the prefix's columns on the main
                 paths) and operations
-  7. mid_one  — a one-level run at k=55 forward (4 key lanes): 100k reads x
+  9. mid_one  — a one-level run at k=55 forward (4 key lanes): 100k reads x
                 150 bp, several consolidations; byte-identical to NumPy
-  8. small    — CLI runs at k=15, 16 (all-T reads), 55 and 101 (canonical)
+ 10. small    — CLI runs at k=15, 16 (all-T reads), 55 and 101 (canonical)
                 with each table, and with the two-level table under each
                 split variant, and a small tableSlots that forces growth;
                 each dump byte-identical to the NumPy count
+ 11. profile  — a small two-level CLI run with profile=true: its
+                torch.profiler trace (<outputFile>.trace/trace.json) names
+                fold_kernel and leaf_kernel; the dump equals the NumPy count
 
 The last three lines: the card's name and power limit, one JSON object
-describing each kernel (its launches and times summed over phases 3-5,
+describing each kernel (its launches and times summed over phases 3-7,
 under "paths" each phase's own, and under "device_kernels" its CUDA
 kernels' traced device time and launches at its largest launch shape),
 and {"ok": true, "device": {...}}.
@@ -127,6 +155,10 @@ MERGES = {
 }
 MAIN_K, MAIN_L, MAIN_READS, MAIN_FILES, MAIN_GENOME = 31, 100, 2_000_000, 4, 4_600_000
 MEMORY_LIMIT = 8_000_000_000
+# The spill and resume phases: 2M reads x 100 bp from a 200-Mbase genome (about
+# 10^8 distinct canonical 31-mers) under gpuMemoryLimit=2e9, the budget the
+# configuration's docs give for a real card.
+SPILL_READS, SPILL_GENOME, SPILL_LIMIT = 2_000_000, 200_000_000, 2_000_000_000
 KERNEL_ROWS = (8 << 20, 32 << 20)  # the kernel phase's random operand sizes (K1, K3, the sort)
 NEW_KERNEL_ROWS = 8 << 20  # the same for K2, K4, K5
 # The merges that fold (their bound counts only the rows that are not the
@@ -655,7 +687,9 @@ def finalize_sort_operands(NL, n, gen, device):
 # them: the two-level runs sort only at finalize, the one-level run sorts
 # its whole table at every consolidation.
 def sort_operands_for(path):
-    return random_sort_operands if path == "main_one" else finalize_sort_operands
+    """The one-level table sorts every slot; the two-level finalize sorts
+    the prefix's live rows, unique and ascending."""
+    return random_sort_operands if path in ("main_one", "spill_one") else finalize_sort_operands
 
 
 def compare_sort(cases, keys, payload, time_it, reduce_too=False):
@@ -1033,23 +1067,43 @@ def run_main_path(device, argv, impl, variant=None):
     """One CLI run of the main count with tableImpl=impl (and, for the
     two-level table, consolidate3's keywords ``variant``).  The launch
     counts are set to 0 just before it and read just after.  Returns
-    (wall s, peak device bytes, {kernel: launches}, LaunchShapes)."""
+    (wall s, peak device bytes, {kernel: launches}, LaunchShapes, the
+    engine's RunStats)."""
     import torch
 
+    from kmer_counter_tpu_torch import engine
     from kmer_counter_tpu_torch.__main__ import main
 
-    with LaunchShapes(variant) as shapes:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(device)
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        rc = main(argv + [f"tableImpl={impl}"])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = launch_counts()
+    real_run, stats = engine.CountEngine.run, []
+
+    def run(self):
+        stats.append(real_run(self))
+        return stats[-1]
+
+    engine.CountEngine.run = run
+    try:
+        with LaunchShapes(variant) as shapes:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = main(argv + [f"tableImpl={impl}"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+    finally:
+        engine.CountEngine.run = real_run
     if rc != 0:
         raise RuntimeError(f"main() returned {rc} (tableImpl={impl}, variant {variant})")
-    return wall, torch.cuda.max_memory_allocated(device), launches, shapes
+    return wall, torch.cuda.max_memory_allocated(device), launches, shapes, stats[0]
+
+
+def check_launches(path, launches, need):
+    """need: {kernel: (least, most or None)} launches in the path's run."""
+    for name, (least, most) in need.items():
+        if launches[name] < least or (most is not None and launches[name] > most):
+            raise AssertionError(f"{path}: {name} launched {launches[name]} times "
+                                 f"(want >= {least}{'' if most is None else f' and <= {most}'})")
 
 
 def check_dump(path, want: bytes, what: str):
@@ -1079,11 +1133,8 @@ def phase_main(device, tmp, cases):
         plan.append((f"main_{variant}", "main_variants", "two", variant, need))
     for path, phase, impl, variant, need in plan:
         kw = cases.CONSOLIDATE_VARIANTS[variant] if variant else None
-        wall, peak, launches, shapes = run_main_path(device, argv, impl, kw)
-        for name, (least, most) in need.items():
-            if launches[name] < least or (most is not None and launches[name] > most):
-                raise AssertionError(f"{path}: {name} launched {launches[name]} times "
-                                     f"(want >= {least}{'' if most is None else f' and <= {most}'})")
+        wall, peak, launches, shapes, _ = run_main_path(device, argv, impl, kw)
+        check_launches(path, launches, need)
         t0 = time.perf_counter()
         if want is None:
             words, counts = numpy_count(reads, MAIN_K, canonical=True)
@@ -1103,6 +1154,243 @@ def phase_main(device, tmp, cases):
         runs[path] = (launches, shapes)
         os.unlink(out)
     return runs
+
+
+def spill_input(tmp):
+    """The spill phases' reads, written as FASTQ files; returns (reads, the
+    input directory)."""
+    import numpy as np
+
+    reads = sample_reads(np.random.default_rng(SEED + 1), SPILL_GENOME, SPILL_READS, MAIN_L, 0.001)
+    in_dir = os.path.join(tmp, "spill_in")
+    per = SPILL_READS // MAIN_FILES
+    for f in range(MAIN_FILES):
+        write_fastq(os.path.join(in_dir, f"reads_{f:02d}.fastq"), reads[f * per : (f + 1) * per])
+    return reads, in_dir
+
+
+class SpillRecorder:
+    """While open, records each run file that io.spill.write_run writes
+    (records and bytes) and each native merge (runs in, records out,
+    seconds); merges run in the scheduler's threads too."""
+
+    def __init__(self):
+        from kmer_counter_tpu_torch.io import native, spill
+
+        self.runs, self.merges = [], []
+        self._patches = [(spill, "write_run", self._write_run), (native, "native_merge_runs", self._merge)]
+        self._reals = {name: getattr(module, name) for module, name, _ in self._patches}
+
+    def _write_run(self, path, lanes, counts):
+        out = self._reals["write_run"](path, lanes, counts)
+        self.runs.append({"file": os.path.basename(out), "records": int((counts > 0).sum()),
+                          "bytes": os.path.getsize(out)})
+        return out
+
+    def _merge(self, paths, out_path, k):
+        t0 = time.perf_counter()
+        n = self._reals["native_merge_runs"](paths, out_path, k)
+        self.merges.append({"runs_in": len(paths), "inputs": [os.path.basename(p) for p in paths],
+                            "records_out": n, "s": time.perf_counter() - t0})
+        return n
+
+    def __enter__(self):
+        for module, name, fn in self._patches:
+            setattr(module, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, _ in self._patches:
+            setattr(module, name, self._reals[name])
+
+
+class Crash(Exception):
+    """Raised by phase_spill's wrapper: the process dying after a snapshot."""
+
+
+def phase_spill(device, tmp):
+    """Phases 6-7: the CLI spills to disk under gpuMemoryLimit=2e9 with
+    each table, then with each table a run with checkpoints stops after the
+    snapshot of its first consolidation that follows a spill, and a second
+    run resumes it.  Returns {path: ({kernel: launches}, LaunchShapes)} for
+    "spill" (two-level), "spill_one", "resume" and "resume_one"."""
+    import json
+
+    import numpy as np
+
+    from kmer_counter_tpu_torch import engine
+    from kmer_counter_tpu_torch.io import native
+
+    if not native.available():
+        raise RuntimeError("spill: the native merge library is not built (make -C native): the Python "
+                           "heap merge would take tens of minutes over 10^8 records")
+    t0 = time.perf_counter()
+    reads, in_dir = spill_input(tmp)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    words, counts = numpy_count(reads, MAIN_K, canonical=True)
+    want, distinct, total = dump_bytes(words, counts), len(counts), int(counts.sum(dtype=np.int64))
+    del reads, words, counts
+    log({"phase": "spill", "data": f"{SPILL_READS} reads x {MAIN_L} bp, {SPILL_GENOME}-base genome, "
+         f"{MAIN_FILES} files", "reads": SPILL_READS, "genome_bases": SPILL_GENOME, "distinct_kmers": distinct,
+         "kmers": total, "setup_s": setup_s, "numpy_count_s": time.perf_counter() - t0,
+         "merge": "native (native/libkmer_io.so kc_merge_runs)"})
+    out = os.path.join(tmp, "spill_out.bin")
+
+    def argv(name, *extra):
+        return [f"kmerLength={MAIN_K}", "canonical=true", f"gpuMemoryLimit={SPILL_LIMIT}",
+                f"inputFileLocation={in_dir}", f"outputFile={out}",
+                f"tempFileLocation={os.path.join(tmp, name + '_tmp')}", "noOfMergersAtOnce=2",
+                "noOfMergeThreads=2", "verbose=0", *extra]
+
+    def entry(phase, impl, wall, peak, launches, shapes, stats, rec):
+        if not rec.merges:
+            raise AssertionError(f"{phase}: no native merge ran")
+        if peak > SPILL_LIMIT:
+            raise AssertionError(f"{phase}: peak device memory {peak} bytes > gpuMemoryLimit {SPILL_LIMIT}")
+        return {"phase": phase, "cmd": "python -m kmer_counter_tpu_torch " + " ".join(argv(phase)[:3])
+                + f" tempFileLocation=... noOfMergersAtOnce=2 noOfMergeThreads=2 tableImpl={impl}",
+                "wall_s": wall, "kmers_per_s": total / wall, "distinct_kmers": stats.distinct_kmers,
+                "consolidations": stats.consolidations, "spilled_runs": stats.spilled_runs,
+                "spill_runs_written": rec.runs, "native_merges": rec.merges, "timers_s": stats.metrics["timers_s"],
+                "launches": launches, "launch_shapes": {k: v for k, v in shapes.shapes.items() if v},
+                "peak_device_bytes": peak, "gpu_memory_limit": SPILL_LIMIT, "byte_identical_to_numpy_count": True}
+
+    runs, chunks = {}, {}
+    for path, impl, need in (("spill", "two", {K1["name"]: (2, None), SORT["name"]: (1, None)}),
+                             ("spill_one", "one", {SORT["name"]: (2, None)})):
+        with SpillRecorder() as rec:
+            wall, peak, launches, shapes, stats = run_main_path(device, argv(path), impl)
+        check_launches(path, launches, need)
+        check_dump(out, want, path)
+        log({**entry("spill", impl, wall, peak, launches, shapes, stats, rec), "path": path,
+             "mid_run_spills": stats.spilled_runs - 1})
+        if stats.spilled_runs - 1 < 2:
+            raise AssertionError(f"{path}: {stats.spilled_runs - 1} mid-run spills (want >= 2)")
+        runs[path], chunks[impl] = (launches, shapes), stats.chunks
+        os.unlink(out)
+
+    # The resume, with each table: the same count with a snapshot at every
+    # consolidation, stopped, then run again with the same checkpointDir
+    # and tempFileLocation.  The two-level run stops right after the first
+    # snapshot that lists a spill run; the one-level run right after the
+    # first spill that follows such a snapshot (a one-level snapshot is
+    # taken before its consolidation's spill decision, so it holds the rows
+    # that then spill).  What the resume skipped and re-registered is read
+    # from the second run itself: the reads it counted (engine._absorb),
+    # its chunks, the runs its merges read and the numbers of the runs it
+    # wrote.
+    import torch
+
+    real = {name: getattr(engine.CountEngine, name) for name in ("_save_checkpoint", "_spill")}
+    real_absorb = engine._absorb
+    listed_a_run = []
+
+    def save(self, stats, *args, **kw):
+        real["_save_checkpoint"](self, stats, *args, **kw)
+        if stats.spilled_runs:
+            if self.opts.table_impl == "two":
+                raise Crash
+            listed_a_run.append(True)
+
+    def spill(self, *args, **kw):
+        real["_spill"](self, *args, **kw)
+        if listed_a_run:
+            raise Crash
+
+    def run_number(name):
+        return int(name.split("_")[1].split(".")[0]) if name.startswith(("spill_", "merge_")) else None
+
+    for path, impl, need in (("resume", "two", {K1["name"]: (1, None), SORT["name"]: (1, None)}),
+                             ("resume_one", "one", {SORT["name"]: (1, None)})):
+        ck = os.path.join(tmp, path + "_ck")
+        resume_argv = argv(path, f"checkpointDir={ck}", "checkpointEvery=1")
+        engine.CountEngine._save_checkpoint, engine.CountEngine._spill = save, spill
+        try:
+            run_main_path(device, resume_argv, impl)
+            raise AssertionError(f"{path}: the run that should stop after a spill ran to its end")
+        except Crash:
+            pass
+        finally:
+            for name, fn in real.items():
+                setattr(engine.CountEngine, name, fn)
+        torch.cuda.empty_cache()
+        with open(os.path.join(ck, "checkpoint.json")) as fh:
+            manifest = json.load(fh)
+        counted = [0]
+
+        def absorb(stats, chunk):
+            counted[0] += chunk.n_reads
+            real_absorb(stats, chunk)
+
+        engine._absorb = absorb
+        try:
+            with SpillRecorder() as rec:
+                wall, peak, launches, shapes, stats = run_main_path(device, resume_argv, impl)
+        finally:
+            engine._absorb = real_absorb
+        check_launches(path, launches, need)
+        check_dump(out, want, path)
+        listed = sorted(os.path.basename(p) for p in manifest.get("spill_runs", []))
+        merged = {name for m in rec.merges for name in m["inputs"]}
+        reregistered = [name for name in listed if name in merged]
+        new_numbers = [run_number(r["file"]) for r in rec.runs if run_number(r["file"]) is not None]
+        skipped = SPILL_READS - counted[0]
+        log({**entry("resume", impl, wall, peak, launches, shapes, stats, rec), "path": path,
+             "reads_skipped": skipped, "snapshot_reads_absorbed": manifest["reads_absorbed"],
+             "chunks": stats.chunks, "chunks_without_resume": chunks[impl], "snapshot_runs": listed,
+             "runs_reregistered": reregistered, "first_new_run": rec.runs[0] if rec.runs else None,
+             "snapshot_records": manifest["records"], "reads": stats.reads})
+        if not 0 < skipped < SPILL_READS or skipped != manifest["reads_absorbed"]:
+            raise AssertionError(f"{path}: counted {counted[0]} reads itself; the snapshot absorbed "
+                                 f"{manifest['reads_absorbed']}")
+        if not stats.chunks < chunks[impl] or stats.reads != SPILL_READS:
+            raise AssertionError(f"{path}: {stats.chunks} chunks (without resume {chunks[impl]}), "
+                                 f"{stats.reads} reads")
+        if not listed or reregistered != listed:
+            raise AssertionError(f"{path}: the snapshot lists {listed}; the merges read {sorted(merged)}")
+        if not new_numbers or min(new_numbers) <= max(run_number(name) for name in listed):
+            raise AssertionError(f"{path}: new runs {new_numbers} do not follow the snapshot's {listed}")
+        if impl == "one" and rec.runs[0]["records"] != manifest["records"]:
+            # The one-level snapshot holds the table before its spill
+            # decision: resumed with room for a chunk it would pass the
+            # cap, so the resume writes it out as a run first.
+            raise AssertionError(f"{path}: the first run has {rec.runs[0]['records']} records, not the "
+                                 f"snapshot's {manifest['records']}")
+        runs[path] = (launches, shapes)
+        os.unlink(out)
+    return runs
+
+
+def phase_profile_flag(tmp):
+    """Phase 11: a small two-level CLI run with profile=true writes its
+    torch.profiler trace next to the output, and the trace names K1's and
+    the sort's kernels."""
+    import json
+
+    import numpy as np
+
+    from kmer_counter_tpu_torch.__main__ import main
+
+    k = MAIN_K
+    reads = sample_reads(np.random.default_rng(7), 30_000, 2_000, 150, 0.005)
+    d = os.path.join(tmp, "profile_flag")
+    write_fastq(os.path.join(d, "in", "a.fastq"), reads)
+    out = os.path.join(d, "out.bin")
+    rc = main([f"kmerLength={k}", "canonical=true", "tableImpl=two", f"inputFileLocation={d}/in",
+               f"outputFile={out}", "tableSlots=40000", "profile=true", "verbose=0"])
+    if rc != 0:
+        raise AssertionError(f"profile=true run: rc={rc}")
+    check_dump(out, dump_bytes(*numpy_count(reads, k, True)), "profile=true run")
+    trace = os.path.join(out + ".trace", "trace.json")
+    with open(trace) as fh:
+        events = json.load(fh)["traceEvents"]
+    found = {name: sum(name in e.get("name", "") for e in events) for name in ("fold_kernel", "leaf_kernel")}
+    log({"phase": "profile", "profile_flag": True, "trace": os.path.relpath(trace, tmp),
+         "trace_bytes": os.path.getsize(trace), "events": len(events), "kernel_events": found,
+         "byte_identical_to_numpy_count": True})
+    if not all(found.values()):
+        raise AssertionError(f"profile=true: the trace lacks a kernel: {found}")
 
 
 def phase_mid_one(device, tmp):
@@ -1351,6 +1639,8 @@ def main():
             return
         runs = phase_main(device, tmp, cases)
         torch.cuda.empty_cache()
+        runs.update(phase_spill(device, tmp))
+        torch.cuda.empty_cache()
 
         def shapes_of(name):
             return {path: shapes.shapes[name] for path, (_, shapes) in runs.items()}
@@ -1362,6 +1652,7 @@ def main():
         torch.cuda.empty_cache()
         phase_mid_one(device, tmp)
         phase_small(tmp, cases)
+        phase_profile_flag(tmp)
     log({"phase": "done", "seconds": time.perf_counter() - t_all})
 
     print(smi_line(), flush=True)

@@ -14,9 +14,18 @@ each chunk's extract + append on the device.  Two tables:
 The host mirrors the append offsets exactly, so no chunk step waits on the
 device; consolidations read back only the live row count.
 
-Not ported yet (each raises NotImplementedError): the multi-device mesh
-engine (``meshShape`` or more than one rank), checkpoints,
-``profile=true``, and spilling to disk.
+With ``tempFileLocation`` set, a consolidation that would take the table
+past the run's cap (``budget.py``: from ``gpuMemoryLimit``, or twice
+``tableSlots``) first writes the table's live rows to disk as a sorted run
+(io.spill); the host merges the runs and the final table into the output.
+With ``checkpointDir`` and ``checkpointEvery``, every that many
+consolidations the consolidated table, the reads it holds and the
+outstanding spill runs are saved (checkpoint.py), and a run with the same
+``checkpointDir`` resumes from the snapshot.  ``profile=true`` traces the
+run with torch.profiler (metrics.device_trace).
+
+Not ported yet (raises NotImplementedError): the multi-device mesh engine
+(``meshShape`` or more than one rank).
 """
 
 from __future__ import annotations
@@ -31,12 +40,13 @@ import numpy as np
 import torch
 
 from kmer_counter_tpu_torch import records
+from kmer_counter_tpu_torch import budget as bg
 from kmer_counter_tpu_torch.config import Options
-from kmer_counter_tpu_torch.io.dump import dump_table
+from kmer_counter_tpu_torch.io.dump import dump_table, load_table
 from kmer_counter_tpu_torch.io.fastq import DirectoryInput, ParallelIngest
-from kmer_counter_tpu_torch.metrics import Metrics
+from kmer_counter_tpu_torch.metrics import Metrics, device_trace
 from kmer_counter_tpu_torch.ops.pipeline import chunk_slots
-from kmer_counter_tpu_torch.ops.u32 import to_numpy
+from kmer_counter_tpu_torch.ops.u32 import MASK, SENTINEL, from_numpy, to_numpy
 
 _END = object()
 
@@ -58,6 +68,8 @@ class RunStats:
     consolidations: int = 0
     distinct_kmers: int = 0
     total_kmers: int = 0
+    spilled_runs: int = 0
+    ingest_seconds: float = 0.0
     wall_seconds: float = 0.0
     per_file: dict = field(default_factory=dict)
     metrics: dict = field(default_factory=dict)
@@ -97,7 +109,18 @@ def _make_source(opts: Options):
 
 
 def _file_key(path: str) -> str:
+    """Checkpoint-manifest key for a source file."""
     return os.path.basename(path) if path else ""
+
+
+def _absorb(stats: RunStats, chunk) -> None:
+    """Count a chunk's reads as absorbed: only once its device step is
+    enqueued (or, for reads shorter than k, at once), so that a snapshot
+    of a consolidated table counts exactly the reads the table holds."""
+    name = _file_key(chunk.path)
+    stats.reads += chunk.n_reads
+    stats.bases += chunk.n_reads * chunk.line_length
+    stats.per_file[name] = stats.per_file.get(name, 0) + chunk.n_reads
 
 
 def _start_monitor(opts: Options, stats: RunStats, gauge_extra):
@@ -110,7 +133,7 @@ def _start_monitor(opts: Options, stats: RunStats, gauge_extra):
 
     return SizeMonitor(
         lambda: f"reads={stats.reads} chunks={stats.chunks} "
-        f"consolidations={stats.consolidations} {gauge_extra()}"
+        f"consolidations={stats.consolidations} spills={stats.spilled_runs} {gauge_extra()}"
     )
 
 
@@ -126,20 +149,43 @@ class CountEngine:
             raise ValueError(f"unknown tableImpl {opts.table_impl!r}")
         if opts.mesh_shape is not None or int(os.environ.get("WORLD_SIZE", "1")) > 1:
             raise _not_ported("the multi-device mesh engine (meshShape / several ranks)")
-        if opts.checkpoint_dir:
-            raise _not_ported("checkpointing (checkpointDir)")
-        if opts.profile:
-            raise _not_ported("profile=true")
         device = torch.device("cuda") if device is None else torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device} requested but CUDA is not available")
         self.opts = opts
         self.device = device
+        self._scheduler = None  # the spill-merge scheduler, once a run spills (io.spill)
 
     @staticmethod
-    def _ingest_worker(source, reads_per_chunk, out_q, metrics):
-        """Prefetch thread: parse chunks ahead of the device."""
+    def _ingest_worker(source, reads_per_chunk, out_q, metrics, skip_reads=0, expected_files=None):
+        """Prefetch thread: parse chunks ahead of the device.
+
+        ``skip_reads`` reads are consumed and discarded first (checkpoint
+        resume; ingest order is deterministic).  ``expected_files`` is the
+        checkpoint's per-file absorbed-read manifest: the skip must consume
+        exactly those counts, or the input changed since the snapshot and
+        the resume would misalign (the error goes to the consumer)."""
         try:
+            skipped: dict[str, int] = {}
+            while skip_reads > 0:
+                with metrics.timer("ingest"):
+                    chunk = source.read_chunk(min(reads_per_chunk, skip_reads))
+                if chunk is None:
+                    break
+                skip_reads -= chunk.n_reads
+                name = _file_key(chunk.path)
+                skipped[name] = skipped.get(name, 0) + chunk.n_reads
+            if expected_files is not None and skipped != expected_files:
+                out_q.put(
+                    RuntimeError(
+                        "checkpoint resume drift: the ingest skip consumed "
+                        f"{skipped} but the checkpoint absorbed "
+                        f"{expected_files} — the input directory's readable "
+                        "file set changed since the snapshot; delete the "
+                        "checkpoint to recount from scratch"
+                    )
+                )
+                return
             while True:
                 with metrics.timer("ingest"):
                     chunk = source.read_chunk(reads_per_chunk)
@@ -151,15 +197,16 @@ class CountEngine:
         finally:
             out_q.put(_END)
 
-    def _chunks(self, source, reads_per_chunk, stats, metrics):
-        """The chunks that hold k-mers, as (reads ``[reads_per_chunk, L]
-        uint8``, worst-case slots), parsed ahead by the prefetch thread.
-        Every chunk's reads and bases are counted into ``stats``."""
+    def _chunks(self, source, reads_per_chunk, stats, metrics, skip_reads, expected_files):
+        """The chunks that hold k-mers, as (chunk, reads ``[reads_per_chunk,
+        L] uint8``, worst-case slots), parsed ahead by the prefetch thread.
+        Chunks of reads shorter than k are absorbed here; the caller
+        absorbs each chunk it yields once its step is enqueued."""
         k = self.opts.kmer_length
         chunk_q: queue.Queue = queue.Queue(maxsize=max(self.opts.prefetch_chunks, 1))
         ingest = threading.Thread(
             target=self._ingest_worker,
-            args=(source, reads_per_chunk, chunk_q, metrics),
+            args=(source, reads_per_chunk, chunk_q, metrics, skip_reads, expected_files),
             daemon=True,
         )
         ingest.start()
@@ -170,17 +217,14 @@ class CountEngine:
                 break
             if isinstance(item, Exception):
                 raise item
-            name = _file_key(item.path)
-            stats.reads += item.n_reads
-            stats.bases += item.n_reads * item.line_length
-            stats.per_file[name] = stats.per_file.get(name, 0) + item.n_reads
             if item.line_length < k:
+                _absorb(stats, item)
                 continue
             reads = item.reads
             if reads.shape[0] < reads_per_chunk:
                 pad = np.zeros((reads_per_chunk - reads.shape[0], reads.shape[1]), np.uint8)
                 reads = np.vstack([reads, pad])
-            yield reads, chunk_slots(reads_per_chunk, item.line_length, k)
+            yield item, reads, chunk_slots(reads_per_chunk, item.line_length, k)
         ingest.join()
         source.close()
 
@@ -203,14 +247,37 @@ class CountEngine:
             return stats
         line_length = max(usable)
         reads_per_chunk, table_slots = plan_chunks(opts, line_length)
-        chunks = self._chunks(source, reads_per_chunk, stats, metrics)
+        resumed = self._resume(stats) if opts.checkpoint_dir else None
+        # With spilling on, what a chunk puts on the card sizes the caps.
+        per_chunk = None
+        if opts.temp_dir:
+            per_chunk = bg.Chunk(reads_per_chunk * line_length, chunk_slots(reads_per_chunk, line_length, k))
+        chunks = self._chunks(source, reads_per_chunk, stats, metrics,
+                              resumed.reads_absorbed if resumed else 0, resumed.files if resumed else None)
         count = self._count_one_level if opts.table_impl == "one" else self._count_two_level
-        lanes_np, counts_np = count(chunks, line_length, reads_per_chunk, table_slots, stats, metrics)
+        lanes_np, counts_np = count(chunks, line_length, reads_per_chunk, table_slots, stats, metrics,
+                                    resumed, per_chunk)
         stats.consolidations += 1  # the finalize's
-        stats.distinct_kmers = len(counts_np)
-        stats.total_kmers = int(counts_np.sum(dtype=np.uint64))
-        dump_table(opts.output_file, lanes_np, counts_np)
+        if self._scheduler is not None:
+            # The final table joins the spill runs; the host merge writes
+            # the sorted output.
+            from kmer_counter_tpu_torch.io import spill as spill_io
+
+            stats.spilled_runs += 1
+            self._scheduler.add_run(
+                spill_io.write_run(os.path.join(opts.temp_dir, "final_table.run"), lanes_np, counts_np)
+            )
+            with metrics.timer("merge"):
+                stats.distinct_kmers = self._scheduler.finish(opts.output_file)
+            self._scheduler = None
+            _, counts_all = load_table(opts.output_file, k)
+            stats.total_kmers = int(counts_all.sum(dtype=np.uint64))
+        else:
+            stats.distinct_kmers = len(counts_np)
+            stats.total_kmers = int(counts_np.sum(dtype=np.uint64))
+            dump_table(opts.output_file, lanes_np, counts_np)
         stats.wall_seconds = time.perf_counter() - t_start
+        stats.ingest_seconds = metrics.timers.get("ingest", 0.0)
         for name, value in (
             ("reads", stats.reads),
             ("chunks", stats.chunks),
@@ -230,7 +297,102 @@ class CountEngine:
             )
         return stats
 
-    def _count_two_level(self, chunks, line_length, reads_per_chunk, table_slots, stats, metrics):
+    # ---- checkpoints and spill -------------------------------------------
+
+    def _resume(self, stats: RunStats):
+        """The checkpoint to resume from, or None: its absorbed reads are
+        counted into ``stats`` and its spill runs re-registered."""
+        from kmer_counter_tpu_torch import checkpoint as ckpt
+
+        resumed = ckpt.load(self.opts.checkpoint_dir, self.opts)
+        if resumed is None:
+            return None
+        stats.reads = resumed.reads_absorbed
+        stats.per_file = dict(resumed.files or {})
+        if resumed.spill_runs:
+            self._resume_spill(resumed.spill_runs, stats)
+        if self.opts.verbose:
+            print(
+                f"[engine] resumed checkpoint: {len(resumed.counts)} records, "
+                f"{resumed.reads_absorbed} reads absorbed, "
+                f"{len(resumed.spill_runs)} spill runs"
+            )
+        return resumed
+
+    def _checkpoint_due(self, stats: RunStats) -> bool:
+        opts = self.opts
+        return bool(opts.checkpoint_every and opts.checkpoint_dir
+                    and stats.consolidations % opts.checkpoint_every == 0)
+
+    def _save_checkpoint(self, stats: RunStats, lanes: torch.Tensor, counts: torch.Tensor, allt: int = 0):
+        """Snapshot a consolidated table (``lanes [NL, U]``, ``counts
+        [U]``, unique and ascending): it holds every chunk absorbed so far
+        (``stats.reads``), less those in the outstanding spill runs, which
+        the snapshot lists."""
+        from kmer_counter_tpu_torch import checkpoint as ckpt
+
+        ckpt.save(
+            self.opts.checkpoint_dir,
+            self.opts,
+            to_numpy(lanes).T,
+            to_numpy(counts),
+            stats.reads,
+            files=dict(stats.per_file),
+            allt=allt,
+            spill_runs=self._scheduler.snapshot_runs() if self._scheduler is not None else None,
+        )
+
+    def _merge_scheduler(self, seq_start: int = 0):
+        """The host merge of the spill runs (noOfMergersAtOnce runs a
+        merge, noOfMergeThreads merges at once)."""
+        from kmer_counter_tpu_torch.io import spill as spill_io
+
+        opts = self.opts
+        return spill_io.MergeScheduler(opts.temp_dir, opts.kmer_length, fan_in=opts.no_of_mergers_at_once,
+                                       threads=opts.no_of_merge_threads, seq_start=seq_start)
+
+    def _resume_spill(self, spill_runs: dict, stats: RunStats):
+        """Rebuild the merge scheduler from a checkpoint's spill-run
+        manifest (resume across a spill).  Filename sequences restart past
+        every existing file in the temp dir, so re-registered runs (and
+        orphans of the crashed run) are never overwritten."""
+        import re
+
+        opts = self.opts
+        if not opts.temp_dir:
+            raise RuntimeError("checkpoint lists spill runs but no tempFileLocation is set")
+        seqs = [0]
+        if os.path.isdir(opts.temp_dir):
+            for name in os.listdir(opts.temp_dir):
+                m = re.match(r"(?:spill|merge)_(\d+)\.run$", name)
+                if m:
+                    seqs.append(int(m.group(1)))
+        top = max(seqs)
+        self._scheduler = self._merge_scheduler(seq_start=top)
+        stats.spilled_runs = max(stats.spilled_runs, top)
+        for path in spill_runs:
+            self._scheduler.add_run(path)
+
+    def _spill(self, lanes: np.ndarray, counts: np.ndarray, stats: RunStats, metrics: Metrics):
+        """Write a consolidated table's live rows (``lanes [n, NL]``,
+        ``counts [n]`` uint32, unique and ascending) to disk as a sorted
+        run."""
+        from kmer_counter_tpu_torch.io import spill as spill_io
+
+        opts = self.opts
+        if self._scheduler is None:
+            self._scheduler = self._merge_scheduler()
+        with metrics.timer("spill"):
+            stats.spilled_runs += 1
+            path = os.path.join(opts.temp_dir, f"spill_{stats.spilled_runs:06d}.run")
+            self._scheduler.add_run(spill_io.write_run(path, lanes, counts))
+        if opts.verbose:
+            print(f"[engine] spilled {counts.shape[0]} records -> {path}")
+
+    # ---- the two tables --------------------------------------------------
+
+    def _count_two_level(self, chunks, line_length, reads_per_chunk, table_slots, stats, metrics, resumed,
+                         per_chunk):
         """The two-level chunk loop (counterpart of
         ``CountEngine._run_two_level``); returns the finalized (lanes,
         counts) on the host."""
@@ -244,28 +406,55 @@ class CountEngine:
         # consolidation; the prefix grows on demand.
         cp = max(table_slots // 8, 1)
         cr = max(table_slots - cp, chunk_slots(reads_per_chunk, line_length, k))
+        cap = bg.max_prefix_slots(opts, NL, cr, per_chunk) if per_chunk else None
         if opts.verbose:
             print(
                 f"[engine] two-level k={k} canonical={opts.canonical} "
                 f"L={line_length} reads/chunk={reads_per_chunk} "
                 f"prefix={cp} raw={cr} device={self.device}"
             )
-        table = t2.make_table2(cp, cr, NL, self.device)
         live_bound = 0  # prefix rows in use (exact after a consolidation)
         raw_bound = 0  # raw slots in use (host mirror of table.raw_off)
+        if resumed is not None:
+            # The snapshot's rows, unique and ascending, then sentinel rows
+            # with count 0, so the prefix stays ascending as K1 requires.
+            # Rows that pass the cap (a snapshot written under another
+            # rule) become a run, as at a consolidation.
+            rows = records.strip_lanes_to_active(resumed.lanes, k)
+            cp, spill = bg.next_prefix(cap, cp, len(resumed.counts), 0)
+            if spill:
+                self._spill(rows, resumed.counts, stats, metrics)
+            else:
+                live_bound = len(resumed.counts)
+            prefix_lanes = np.full((NL, cp), 0xFFFFFFFF, np.uint32)
+            prefix_counts = np.zeros(cp, np.uint32)
+            prefix_lanes[:, :live_bound] = rows[:live_bound].T
+            prefix_counts[:live_bound] = resumed.counts[:live_bound]
+            table = t2.table_from_numpy(prefix_lanes, prefix_counts, np.zeros((NL, cr), np.uint32), 0,
+                                        resumed.allt, self.device)
+        else:
+            table = t2.make_table2(cp, cr, NL, self.device)
 
-        def consolidate():
-            # Pre-grow: live + raw bounds the distinct keys a consolidation
-            # can produce, so growing to it first makes truncation
-            # impossible.  Geometric, so a cardinality-growing run sees
-            # O(log) reallocations.  ``table`` is rebound here, not passed
-            # in, so the pre-grow buffers are freed before the kernel runs.
+        def consolidate(final=False):
+            # The prefix is sized before the merge so that it can never
+            # truncate; where growing it would pass the cap, its live
+            # rows spill first (budget.next_prefix).  ``table`` is rebound
+            # here, not passed in, so the old buffers are freed before the
+            # kernel runs.  The all-T side count stays in the table and is
+            # written once, at the end.
             nonlocal table, cp, live_bound
-            if live_bound + raw_bound > cp:
-                cp = max(live_bound + raw_bound, 2 * cp)
+            new_cp, spill = bg.next_prefix(cap, cp, live_bound, raw_bound)
+            if spill:
+                self._spill(to_numpy(table.prefix_lanes[:, :live_bound]).T,
+                            to_numpy(table.prefix_counts[:live_bound]), stats, metrics)
+                table.prefix_lanes[:, :live_bound] = SENTINEL
+                table.prefix_counts[:live_bound] = 0
+                live_bound = 0
+            if new_cp > cp:
                 if opts.verbose:
-                    print(f"[engine] growing prefix to {cp} slots")
-                table = t2.grow2(table, cp, cr)
+                    print(f"[engine] growing prefix to {new_cp} slots")
+                table = t2.grow2(table, new_cp, cr)
+                cp = new_cp
             with metrics.timer("consolidate"):
                 table, live_bound, lost = t2.consolidate3(table)
             if lost:
@@ -273,12 +462,15 @@ class CountEngine:
                     f"consolidation truncated {lost} live records: "
                     "prefix pre-grow invariant violated"
                 )
+            if final:
+                return  # counted by run() as the finalize's
             stats.consolidations += 1
-            if opts.temp_dir and cp + cr > self._max_table_slots(NL):
-                raise _not_ported("spilling to disk (tempFileLocation)")
+            if self._checkpoint_due(stats):
+                self._save_checkpoint(stats, table.prefix_lanes[:, :live_bound],
+                                      table.prefix_counts[:live_bound], int(table.allt) & MASK)
 
         with _start_monitor(opts, stats, lambda: f"raw={raw_bound}/{cr} live={live_bound}/{cp}"):
-            for reads, slots in chunks:
+            for chunk, reads, slots in chunks:
                 if raw_bound + slots > cr:
                     consolidate()
                     raw_bound = 0
@@ -287,15 +479,19 @@ class CountEngine:
                     count_step_two_level(table, dev_reads, k, opts.canonical)
                 raw_bound += slots
                 stats.chunks += 1
+                _absorb(stats, chunk)
 
-        if live_bound + raw_bound > cp:
-            table = t2.grow2(table, live_bound + raw_bound, cr)
+        if raw_bound:
+            consolidate(final=True)
+        # The raw region is merged: free it before the finalize's sort.
+        table.raw_lanes = table.raw_lanes.new_empty((NL, 0))
         with metrics.timer("finalize"):
-            # live_bound is exact here: a consolidation set it, and a merge
-            # of a non-empty raw region inside finalize_host replaces it.
+            # live_bound is exact: a consolidation set it, or the snapshot
+            # did (finalize2 sorts those rows).
             return t2.finalize_host(table, k, live_bound)
 
-    def _count_one_level(self, chunks, line_length, reads_per_chunk, table_slots, stats, metrics):
+    def _count_one_level(self, chunks, line_length, reads_per_chunk, table_slots, stats, metrics, resumed,
+                         per_chunk):
         """The one-level chunk loop (counterpart of
         ``CountEngine._run_one_level``); returns the finalized (lanes,
         counts) on the host."""
@@ -311,21 +507,51 @@ class CountEngine:
                 f"reads/chunk={reads_per_chunk} table_slots={table_slots} "
                 f"device={self.device}"
             )
-        table = t1.make_table(table_slots, NL, self.device)
+        cap = bg.max_table_slots(opts, NL, per_chunk) if per_chunk else None
+        if resumed is not None:
+            # The snapshot's rows and room for a chunk; where the table
+            # would grow past the cap for them, they become a run first,
+            # as at a consolidation.
+            U = len(resumed.counts)
+            rows = records.strip_lanes_to_active(resumed.lanes, k)
+            slots = chunk_slots(reads_per_chunk, line_length, k)
+            table_slots, spill = bg.next_capacity(cap, table_slots, U + slots)
+            if spill:
+                self._spill(rows, resumed.counts, stats, metrics)
+                U = 0
+            lanes = np.zeros((NL, table_slots), np.uint32)
+            counts = np.zeros(table_slots, np.uint32)
+            lanes[:, :U] = rows[:U].T
+            counts[:U] = resumed.counts[:U]
+            table = t1.CountTable(from_numpy(lanes, self.device), from_numpy(counts, self.device), U)
+        else:
+            table = t1.make_table(table_slots, NL, self.device)
         with _start_monitor(opts, stats, lambda: f"bound={table.offset}/{table.lanes.shape[1]}"):
-            for reads, slots in chunks:
-                if table.offset + slots > table.lanes.shape[1]:
+            for chunk, reads, slots in chunks:
+                capacity = table.lanes.shape[1]
+                if table.offset + slots > capacity:
                     with metrics.timer("consolidate"):
                         table = t1.consolidate(table)
                     stats.consolidations += 1
-                    if table.offset + slots > table.lanes.shape[1]:
-                        if opts.temp_dir and 2 * table.lanes.shape[1] > self._max_table_slots(NL):
-                            raise _not_ported("spilling to disk (tempFileLocation)")
-                        table = self._grow_for(table, table.offset + slots)
+                    if self._checkpoint_due(stats):
+                        self._save_checkpoint(stats, table.lanes[:, : table.offset], table.counts[: table.offset])
+                    if table.offset + slots > capacity:
+                        grown, spill = bg.next_capacity(cap, capacity, table.offset + slots)
+                        if spill:
+                            n = table.offset
+                            self._spill(to_numpy(table.lanes[:, :n]).T, to_numpy(table.counts[:n]), stats, metrics)
+                            table.counts[:n] = 0
+                            table.offset = 0
+                            grown, _ = bg.next_capacity(None, capacity, slots)
+                        if grown > capacity:
+                            if opts.verbose:
+                                print(f"[engine] growing table to {grown} slots")
+                            table = t1.grow(table, grown)
                 with metrics.timer("dispatch"):
                     dev_reads = torch.from_numpy(reads).to(self.device)
                     t1.append(table, *extract_chunk(dev_reads, k, opts.canonical))
                 stats.chunks += 1
+                _absorb(stats, chunk)
 
         with metrics.timer("finalize"):
             table = t1.consolidate(table)
@@ -333,25 +559,14 @@ class CountEngine:
             lanes = np.ascontiguousarray(to_numpy(table.lanes[:, :n]).T)
             return lanes, to_numpy(table.counts[:n])
 
-    def _grow_for(self, table, needed_slots: int):
-        """Double the one-level table's capacity until ``needed_slots``
-        fit (cardinality outgrew the planned table)."""
-        from kmer_counter_tpu_torch.ops import table as t1
-
-        cap = table.lanes.shape[1]
-        while cap < needed_slots:
-            cap *= 2
-        if self.opts.verbose:
-            print(f"[engine] growing table to {cap} slots")
-        return t1.grow(table, cap)
-
-    def _max_table_slots(self, NL: int) -> int:
-        """The table size past which the JAX engine spills to disk."""
-        if self.opts.table_slots:
-            return 2 * self.opts.table_slots
-        return 4 * max(self.opts.memory_limit_bytes // 2 // ((NL + 1) * 4 * 3), 1 << 14)
-
 
 def run_count(opts: Options, device: torch.device | None = None) -> RunStats:
-    """Run the single-device engine on ``device`` (default: cuda)."""
-    return CountEngine(opts, device).run()
+    """Run the single-device engine on ``device`` (default: cuda).
+
+    With ``profile=true`` the run is traced by torch.profiler, the trace
+    written next to the output file (``<outputFile>.trace/trace.json``).
+    """
+    engine = CountEngine(opts, device)
+    trace_dir = opts.output_file + ".trace" if opts.profile else None
+    with device_trace(trace_dir, engine.device):
+        return engine.run()

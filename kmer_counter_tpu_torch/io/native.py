@@ -1,8 +1,7 @@
 """ctypes bindings to the native host runtime (native/libkmer_io.so).
 
-The port's own copy of kmer_counter_tpu/io/native.py, less the spill
-merge (spilling is not ported yet).  It loads the same library, built
-from the repository's native/ sources.
+The port's own copy of kmer_counter_tpu/io/native.py.  It loads the same
+library, built from the repository's native/ sources.
 
 The C++ library implements the hot host-side paths — FASTQ chunk parsing
 and the k-way merge of sorted spill runs (native/kmer_io.cpp).  Everything
@@ -146,3 +145,18 @@ class NativeFASTQReader:
         if self._h is not None:
             self._lib.kc_close(self._h)
             self._h = None
+
+
+def native_merge_runs(paths: list[str], out_path: str, k: int) -> int:
+    """C++ k-way merge; same contract as io.spill.merge_runs."""
+    lib = load_library()
+    if lib is None:
+        raise RuntimeError("native library not built (make -C native)")
+    arr = (ctypes.c_char_p * len(paths))(*[p.encode() for p in paths])
+    parent = os.path.dirname(out_path)
+    if parent:
+        os.makedirs(parent, exist_ok=True)
+    n = lib.kc_merge_runs(arr, len(paths), out_path.encode(), k)
+    if n < 0:
+        raise OSError(f"native merge failed over {len(paths)} runs")
+    return int(n)

@@ -4,10 +4,11 @@ The reference's only observability is printf progress spam in the CUDA
 driver (GPUHandler.cu:399-403,422-424,450-451) and a 1 Hz hashtable-size
 monitor thread (KMerCounter.cpp:92-96).  This module provides the
 structured equivalent (SURVEY.md §5): named stage timers, monotonic
-counters and an optional background table-size monitor.
+counters, an optional background table-size monitor, and a
+``torch.profiler`` trace context for device-level analysis.
 
-The port's own copy of kmer_counter_tpu/metrics.py without its
-``jax.profiler`` trace context (``profile=true`` is not ported yet).
+The port's own copy of kmer_counter_tpu/metrics.py; its ``device_trace``
+records with ``torch.profiler`` where the original uses ``jax.profiler``.
 """
 
 from __future__ import annotations
@@ -80,3 +81,25 @@ class SizeMonitor:
     def __exit__(self, *exc):
         self._stop.set()
         self._thread.join(timeout=2 * self._interval)
+
+
+@contextlib.contextmanager
+def device_trace(trace_dir: str | None, device=None):
+    """torch.profiler trace of the host and, when ``device`` is a CUDA
+    device, of the card, written to ``trace_dir`` as a Chrome trace
+    (``trace.json``, which chrome://tracing and Perfetto open); a no-op when
+    trace_dir is falsy."""
+    if not trace_dir:
+        yield
+        return
+    import os
+
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device is not None and torch.device(device).type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    os.makedirs(trace_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))

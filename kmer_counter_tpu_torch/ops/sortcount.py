@@ -80,23 +80,39 @@ def sort_reduce(
     if lanes.shape[1] == 0:
         return lanes.clone(), counts.clone(), 0
     eff = torch.where(counts != 0, lanes, SENTINEL)
-    return reduce_sorted(*device_sort(eff, counts))
+    s, s_counts = device_sort(eff, counts)
+    del eff  # freed before the reduce, which holds its largest temporaries
+    return reduce_sorted(s, s_counts)
 
 
 def reduce_sorted(
     s: torch.Tensor, counts: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor, int]:
     """The second half of ``sort_reduce``: sorted keys ``s`` and their
-    counts → (unique_lanes, unique_counts, num_unique)."""
-    c = widen(counts)
+    counts → (unique_lanes, unique_counts, num_unique).
+
+    Works in place: ``s`` and ``counts`` (a sort's fresh outputs) become
+    the unique lanes and counts, so the reduce allocates no table-sized
+    output beside them; its temporaries are int64 vectors of the rows or
+    the runs (the running sum of the counts, the run heads and ends)."""
     head_idx = torch.nonzero(run_heads(s)).squeeze(1)
     U = head_idx.shape[0]
-    totals = run_totals(c, head_idx)
-    u_lanes = torch.full_like(s, SENTINEL)
-    u_lanes[:, :U] = s[:, head_idx]
-    u_counts = torch.zeros_like(counts)
-    u_counts[:U] = narrow(totals)
-    # Drop the trailing group when it sums to 0 (the all-sentinel group of
-    # empty rows), exactly as the JAX version does.
-    num_unique = U - int(U > 0 and int(totals[-1]) == 0)
-    return u_lanes, u_counts, num_unique
+    # Each run's total is the difference of the running sum at its end and
+    # at the end of the run before.  The int32 counts are summed as signed
+    # values, which agree with their uint32 values mod 2^32.  Each
+    # temporary is freed as soon as it is used, so that at most four int64
+    # vectors are alive at once.
+    csum = torch.cumsum(counts, 0, dtype=torch.int64)
+    ends = csum[torch.cat([head_idx[1:] - 1, head_idx.new_tensor([counts.shape[0] - 1])])]
+    del csum
+    s[:, :U] = s[:, head_idx]
+    s[:, U:] = SENTINEL
+    del head_idx
+    totals = torch.diff(ends, prepend=ends.new_zeros(1))
+    del ends
+    counts[:U] = narrow(totals)
+    counts[U:] = 0
+    # Drop the trailing group when it sums to 0 mod 2^32 (the all-sentinel
+    # group of empty rows), exactly as the JAX version does.
+    num_unique = U - int(U > 0 and (int(totals[-1]) & MASK) == 0)
+    return s, counts, num_unique

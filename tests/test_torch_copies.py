@@ -1,6 +1,7 @@
 """The port's copies of the JAX package's NumPy-only modules (config,
-records, metrics, io.fastq, io.native, io.dump, io.printer) against the
-originals: the same inputs give the same results."""
+records, metrics, checkpoint, io.fastq, io.native, io.dump, io.printer,
+io.spill) against the originals: the same inputs give the same results,
+and the same files, byte for byte."""
 
 import dataclasses
 import os
@@ -8,14 +9,17 @@ import os
 import numpy as np
 import pytest
 
+from kmer_counter_tpu import checkpoint as jax_checkpoint
 from kmer_counter_tpu import config as jax_config
 from kmer_counter_tpu import metrics as jax_metrics
 from kmer_counter_tpu import records as jax_records
 from kmer_counter_tpu.io import dump as jax_dump
 from kmer_counter_tpu.io import fastq as jax_fastq
+from kmer_counter_tpu.io import native as jax_native
 from kmer_counter_tpu.io import printer as jax_printer
-from kmer_counter_tpu_torch import config, metrics, records
-from kmer_counter_tpu_torch.io import dump, fastq, native, printer
+from kmer_counter_tpu.io import spill as jax_spill
+from kmer_counter_tpu_torch import checkpoint, config, metrics, records
+from kmer_counter_tpu_torch.io import dump, fastq, native, printer, spill
 
 from tests.test_ingest import random_seqs, write_fastq
 
@@ -137,3 +141,86 @@ def test_metrics_copy_counts_and_times_the_same():
     assert snap["counters"] == jax_snap["counters"] == {"chunks": 3}
     assert snap["timer_calls"] == jax_snap["timer_calls"] == {"consolidate": 1}
     assert snap["timers_s"].keys() == jax_snap["timers_s"].keys()
+
+
+def _runs(tmp_path, rng, k, n_runs=5):
+    """Sorted run files of overlapping random tables (keys shared across
+    runs, and counts near 2^32 so that some sums saturate in the merge)."""
+    pool_lanes, _ = _table(rng, k, n=60)
+    paths = []
+    for i in range(n_runs):
+        pick = np.sort(rng.choice(len(pool_lanes), 25, replace=False))
+        counts = rng.integers(1, 2**32, 25, dtype=np.uint64).astype(np.uint32)
+        paths.append(jax_spill.write_run(str(tmp_path / f"run{i}.run"), pool_lanes[pick], counts))
+    return paths
+
+
+@pytest.mark.parametrize("k", [15, 33, 101])
+def test_write_run_bytes(tmp_path, rng, k):
+    lanes, counts = _table(rng, k)
+    counts[::5] = 0  # empty slots are not written
+    port = spill.write_run(str(tmp_path / "p" / "a.run"), lanes, counts)
+    jax_path = jax_spill.write_run(str(tmp_path / "j" / "a.run"), lanes, counts)
+    assert open(port, "rb").read() == open(jax_path, "rb").read()
+
+
+@pytest.mark.parametrize("use_native", [False, None])
+@pytest.mark.parametrize("k", [15, 33])
+def test_merge_runs_output(tmp_path, rng, k, use_native):
+    """The heap merge (use_native=False) and the dispatch (the native merge
+    when the library is built) write the same bytes as the original's."""
+    paths = _runs(tmp_path, rng, k)
+    n = spill.merge_runs(paths, str(tmp_path / "port.bin"), k, use_native=use_native)
+    want = jax_spill.merge_runs(paths, str(tmp_path / "jax.bin"), k, use_native=use_native)
+    assert n == want > 25
+    assert (tmp_path / "port.bin").read_bytes() == (tmp_path / "jax.bin").read_bytes()
+    _, counts = dump.load_table(str(tmp_path / "port.bin"), k)
+    assert (counts == 0xFFFFFFFF).any()  # saturated sums
+
+
+def test_native_merge_runs_output(tmp_path, rng):
+    if not jax_native.available():
+        pytest.skip("native/libkmer_io.so is not built")
+    k = 31
+    paths = _runs(tmp_path, rng, k)
+    n = native.native_merge_runs(paths, str(tmp_path / "port.bin"), k)
+    assert n == jax_native.native_merge_runs(paths, str(tmp_path / "jax.bin"), k)
+    assert (tmp_path / "port.bin").read_bytes() == (tmp_path / "jax.bin").read_bytes()
+
+
+def test_merge_scheduler_finish_output(tmp_path, rng):
+    k = 21
+    outs = []
+    for name, module in (("port", spill), ("jax", jax_spill)):
+        (tmp_path / name).mkdir()
+        sched = module.MergeScheduler(str(tmp_path / name / "tmp"), k, fan_in=2, threads=2, seq_start=7)
+        for path in _runs(tmp_path / name, np.random.default_rng(5), k, n_runs=7):
+            sched.add_run(path)
+        assert sched.snapshot_runs()
+        n = sched.finish(str(tmp_path / name / "out.bin"))
+        outs.append((n, (tmp_path / name / "out.bin").read_bytes()))
+        assert not list((tmp_path / name / "tmp").glob("*.run"))
+    assert outs[0] == outs[1] and outs[0][0] > 25
+
+
+@pytest.mark.parametrize("spilled", [False, True])
+def test_checkpoint_files_byte_identical(tmp_path, rng, spilled):
+    k = 31
+    lanes, counts = _table(rng, k)
+    abi = records.pad_lanes_to_abi(lanes, k)
+    run = spill.write_run(str(tmp_path / "spill_000001.run"), lanes, counts) if spilled else None
+    opts = config.Options(kmer_length=k, canonical=True, input_dir=str(tmp_path / "in"))
+    for name, module in (("port", checkpoint), ("jax", jax_checkpoint)):
+        module.save(str(tmp_path / name), opts, abi, counts, 1234, files={"a.fastq": 1000, "b.fastq": 234},
+                    allt=7, spill_runs=[run] if run else None)
+    for f in (checkpoint.MANIFEST, checkpoint.TABLE):
+        assert (tmp_path / "port" / f).read_bytes() == (tmp_path / "jax" / f).read_bytes()
+    assert checkpoint.config_fingerprint(opts) == jax_checkpoint.config_fingerprint(opts)
+    got = checkpoint.load(str(tmp_path / "jax"), opts)
+    want = jax_checkpoint.load(str(tmp_path / "port"), opts)
+    for a, b in zip(got, want):
+        if isinstance(a, np.ndarray):
+            np.testing.assert_array_equal(a, b)
+        else:
+            assert a == b
+    assert (got.reads_absorbed, got.allt, bool(got.spill_runs)) == (1234, 7, spilled)

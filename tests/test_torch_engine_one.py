@@ -63,9 +63,17 @@ def test_engine_one_level_grows_the_table(tmp_path, rng, capsys):
 
 
 def test_engine_one_level_spill_is_not_ported(tmp_path, rng):
+    """The options that raised before spilling was ported: the table now
+    spills to tempFileLocation instead of growing past twice tableSlots,
+    and the dump equals the JAX engine's and golden."""
     _input(tmp_path, rng, 40, 60)
-    opts = Options(kmer_length=21, input_dir=str(tmp_path / "in"), output_file=str(tmp_path / "o.bin"),
-                   verbose=0, reads_per_chunk=4, table_slots=64, table_impl="one",
-                   temp_dir=str(tmp_path / "spill"))
-    with pytest.raises(NotImplementedError, match="spilling"):
-        CountEngine(opts, device=CPU).run()
+    stats = []
+    for name, engine in (("port", lambda o: CountEngine(o, device=CPU)), ("jax", JaxCountEngine)):
+        opts = Options(kmer_length=21, input_dir=str(tmp_path / "in"), output_file=str(tmp_path / f"{name}.bin"),
+                       verbose=0, reads_per_chunk=4, table_slots=64, table_impl="one",
+                       temp_dir=str(tmp_path / f"spill_{name}"))
+        stats.append(engine(opts).run())
+    port = (tmp_path / "port.bin").read_bytes()
+    assert port == (tmp_path / "jax.bin").read_bytes() == golden_bytes(tmp_path, 21, False)
+    assert stats[0].spilled_runs >= 2
+    assert stats[0].distinct_kmers == stats[1].distinct_kmers

@@ -18,6 +18,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = [
     "kmer_counter_tpu_torch",
     "kmer_counter_tpu_torch.__main__",
+    "kmer_counter_tpu_torch.budget",
+    "kmer_counter_tpu_torch.checkpoint",
     "kmer_counter_tpu_torch.config",
     "kmer_counter_tpu_torch.cuda_build",
     "kmer_counter_tpu_torch.engine",
@@ -26,6 +28,7 @@ PORT_MODULES = [
     "kmer_counter_tpu_torch.io.fastq",
     "kmer_counter_tpu_torch.io.native",
     "kmer_counter_tpu_torch.io.printer",
+    "kmer_counter_tpu_torch.io.spill",
     "kmer_counter_tpu_torch.metrics",
     "kmer_counter_tpu_torch.ops",
     "kmer_counter_tpu_torch.ops.compact_live",
@@ -111,15 +114,30 @@ def test_cli_count_fails_without_gpu(tmp_path):
     "kw,what",
     [
         ({"mesh_shape": (2,)}, "mesh"),
-        ({"checkpoint_dir": "ck"}, "checkpoint"),
-        ({"profile": True}, "profile"),
+        ({"checkpoint_dir": "ck"}, None),
+        ({"profile": True}, None),
     ],
+    ids=["kw0-mesh", "kw1-checkpoint", "kw2-profile"],
 )
 def test_unported_options_raise(tmp_path, kw, what):
+    """The mesh engine still raises; checkpointDir and profile=true are
+    ported and no longer do."""
     from kmer_counter_tpu_torch.engine import CountEngine
 
     opts = Options(kmer_length=15, input_dir=str(tmp_path), output_file=str(tmp_path / "o"), **kw)
+    if what is None:
+        assert CountEngine(opts, device=torch.device("cpu")).opts is opts
+        return
     with pytest.raises(NotImplementedError, match=what):
+        CountEngine(opts, device=torch.device("cpu"))
+
+
+def test_several_ranks_raise(tmp_path, monkeypatch):
+    from kmer_counter_tpu_torch.engine import CountEngine
+
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    opts = Options(kmer_length=15, input_dir=str(tmp_path), output_file=str(tmp_path / "o"))
+    with pytest.raises(NotImplementedError, match="several ranks"):
         CountEngine(opts, device=torch.device("cpu"))
 
 
