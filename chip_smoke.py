@@ -67,10 +67,11 @@ and prints no result):
                 merges also at the K1/K3 kernel's tile, the sort's also on
                 lanes sliced from a wider table, K2's also on rows a word
                 past a 16-byte boundary) and at each launch shape of phases
-                3-7, on operands shaped as that path gives them (the
-                prefix's live rows and the raw region's liveness as the path
-                had them; K1 and the merges also on operands of the same
-                size with an 80%-live prefix, as earlier runs timed them;
+                3-7 and 12-15, on operands shaped as that path gives them
+                (the prefix's live rows and the raw region's liveness as the
+                path had them; K1 and the merges of phases 3-7 also on
+                operands of the same size with an 80%-live prefix, as
+                earlier runs timed them;
                 the sort with sort_reduce's outputs equal too); CUDA-event
                 times of kernel, plain version and, where one PyTorch call
                 computes the same function, that call; the device time and
@@ -90,9 +91,40 @@ and prints no result):
  11. profile  — a small two-level CLI run with profile=true: its
                 torch.profiler trace (<outputFile>.trace/trace.json) names
                 fold_kernel and leaf_kernel; the dump equals the NumPy count
+ 12. mesh     — (after phase 5) the main count through engine.run_count on a
+                mesh of 4 positions that share the card, with each table
+                ("mesh", "mesh_one"): the dump byte-identical to phase 3's
+                NumPy count, peak device memory at most gpuMemoryLimit, K1
+                launched once for each consolidation of each position
+                (two-level), the sort once for each (one-level) and once
+                for each position the route gave rows; logs the rows each
+                position received (the splitters' balance), the route's
+                seconds and the device memory it added beside budget.py's
+                reckoning
+ 13. mesh_mp  — the same count in two processes that share the card over a
+                gloo process group (NCCL takes one rank a device), each
+                owning 2 positions (this script again, as
+                `chip_smoke.py --mesh-worker RANK 2 STORE RUNS_JSON`), with
+                each table ("mesh_mp", "mesh_mp_one"; one launch of the
+                ranks runs both in turn): 4 part files and 2
+                manifests, the parts in name order byte-identical to the
+                NumPy count, each rank's launches checked, the ranks' peaks
+                together at most gpuMemoryLimit
+ 14. mesh_spill — (after phase 7) the spill count on 4 positions at
+                gpuMemoryLimit=2e9, two-level, with noOfMergersAtOnce=4 and
+                noOfMergeThreads=4 (4 runs a spill, and half the merge
+                passes of phase 6's setting): at least two runs a position
+                spilled mid-run, the host merge, peak at most 2e9, the dump
+                byte-identical to phase 6's NumPy count
+ 15. mesh_resume — the same with a snapshot at every consolidation, stopped
+                after the first that lists a run, then resumed (no more
+                snapshots): the reads it skipped are the snapshot's, its
+                merges read the runs the snapshot lists, its runs are
+                numbered after them; the same dump, peak at most 2e9
 
 The last three lines: the card's name and power limit, one JSON object
-describing each kernel (its launches and times summed over phases 3-7,
+describing each kernel (its launches and times summed over phases 3-7
+and 12-15,
 under "paths" each phase's own, and under "device_kernels" its CUDA
 kernels' traced device time and launches at its largest launch shape),
 and {"ok": true, "device": {...}}.
@@ -236,8 +268,12 @@ def numpy_count(reads, k, canonical, block=250_000):
     """Independent count of every k-mer window whose bases are all ACGT
     (either case): 2-bit codes A<C<G<T packed MSB-first into ceil(k/32)
     uint64 words per k-mer; canonical takes the lexicographic minimum of
-    the k-mer and its reverse complement.  Returns (words [U, W] uint64
-    ascending, counts [U] uint32)."""
+    the k-mer and its reverse complement.  Blocks of reads are counted on
+    every host core (NumPy releases the GIL in its loops and
+    sorts), then their counts are summed key by key, a range of keys a
+    thread.  Returns (words [U, W] uint64 ascending, counts [U] uint32)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import numpy as np
 
     W = -(-k // 32)
@@ -246,8 +282,8 @@ def numpy_count(reads, k, canonical, block=250_000):
     lut = np.full(256, 255, np.uint8)
     for code, base in enumerate(b"ACGT"):
         lut[base] = lut[base + 32] = code
-    parts = []
-    for b0 in range(0, R, block):
+
+    def count_block(b0):
         raw = lut[reads[b0 : b0 + block]]
         valid = raw != 255
         c = np.where(valid, raw, 0).astype(np.uint64)
@@ -268,16 +304,29 @@ def numpy_count(reads, k, canonical, block=250_000):
                 decided |= lt | gt
             fwd = np.where(take_rc, rc, fwd)
         bad = np.concatenate([np.zeros((len(c), 1), np.int64), np.cumsum(~valid, axis=1)], 1)
-        parts.append(fwd[:, bad[:, k : k + P] == bad[:, :P]])
-    keys = np.concatenate(parts, axis=1)
-    if W == 1:
-        words, counts = np.unique(keys[0], return_counts=True)
-        return words[:, None], counts.astype(np.uint32)
-    keys = keys[:, np.lexsort(keys[::-1])].T
-    head = np.ones(len(keys), bool)
-    head[1:] = (keys[1:] != keys[:-1]).any(axis=1)
-    starts = np.flatnonzero(head)
-    return keys[starts], np.diff(np.append(starts, len(keys))).astype(np.uint32)
+        keys = fwd[:, bad[:, k : k + P] == bad[:, :P]].T
+        keys, counts = sum_by_key(keys, np.ones(len(keys), np.uint64))
+        # The block's keys cut into RANGES ranges of the first word's top
+        # bits: ranges ascending in key order, each summed on its own.
+        cuts = np.searchsorted(keys[:, 0], np.arange(1, RANGES, dtype=np.uint64) << np.uint64(64 - RANGE_BITS))
+        return np.split(keys, cuts), np.split(counts, cuts)
+
+    def sum_by_key(keys, counts):
+        order = np.argsort(keys[:, 0], kind="stable") if W == 1 else np.lexsort(keys.T[::-1])
+        keys, counts = keys[order], counts[order]
+        head = np.ones(len(keys), bool)
+        head[1:] = (keys[1:] != keys[:-1]).any(axis=1)
+        starts = np.flatnonzero(head)
+        return keys[starts], np.add.reduceat(counts, starts) if len(starts) else counts[:0]
+
+    RANGE_BITS = 4
+    RANGES = 1 << RANGE_BITS
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        blocks = list(pool.map(count_block, range(0, R, block)))
+        ranges = list(pool.map(lambda r: sum_by_key(np.concatenate([b[0][r] for b in blocks]),
+                                                    np.concatenate([b[1][r] for b in blocks])), range(RANGES)))
+    del blocks
+    return np.concatenate([r[0] for r in ranges]), np.concatenate([r[1] for r in ranges]).astype(np.uint32)
 
 
 def dump_bytes(words, counts):
@@ -581,11 +630,14 @@ def k1_random_shapes(device, gen):
 def k1_at_shape(path, shape, gen, device):
     """K1 vs plain, timed, at one main-path launch shape (NL, na, nb,
     live_a, live_b, masked_b, out_rows; out_rows None for na+nb): first on
-    operands shaped as the path gave them, then on the 80%-live random mix
-    of the same size.  Returns the path-shaped timing."""
+    operands shaped as the path gave them, then (not on the mesh paths) on
+    the 80%-live random mix of the same size.  Returns the path-shaped
+    timing."""
     NL, na, nb, *live, out_rows = shape
     out = None
-    for mix in ("path", "random_80pct_live"):
+    # The mesh paths' many shapes (each position's live rows differ) are
+    # timed on their path-shaped operands only.
+    for mix in ("path",) if path.startswith("mesh") else ("path", "random_80pct_live"):
         a_ops, b_ops = random_k1_operands(NL, na, nb, gen, device, live if mix == "path" else None)
         t = compare_k1(a_ops, b_ops, NL, time_it=True, out_rows=out_rows)
         del a_ops, b_ops
@@ -686,10 +738,33 @@ def finalize_sort_operands(NL, n, gen, device):
 # The sort's operands at each main path's launch shapes, as that path gives
 # them: the two-level runs sort only at finalize, the one-level run sorts
 # its whole table at every consolidation.
-def sort_operands_for(path):
+def route_sort_operands(NL, n, gen, device):
+    """Sort operands as a mesh route gives them to sort_reduce: the slices
+    that MESH_POSITIONS positions send, concatenated, each unique and
+    ascending and each holding most keys of the range (every position
+    counted most of the genome)."""
+    import torch
+
+    pool, _ = finalize_sort_operands(NL, -(-n // MESH_POSITIONS) + 1, gen, device)
+    keys = torch.cat([pool[:, torch.rand(pool.shape[1], generator=gen, device=device) < 0.97]
+                      for _ in range(MESH_POSITIONS)], dim=1)
+    while keys.shape[1] < n:
+        keys = torch.cat([keys, pool], dim=1)
+    return keys[:, :n].contiguous(), torch.randint(1, 6, (n,), generator=gen, device=device, dtype=torch.int32)
+
+
+# The paths whose tables are one-level (a sort of every slot at each
+# consolidation).
+ONE_LEVEL_PATHS = ("main_one", "spill_one", "resume_one", "mesh_one", "mesh_mp_one")
+
+
+def sort_operands_for(path, route=False):
     """The one-level table sorts every slot; the two-level finalize sorts
-    the prefix's live rows, unique and ascending."""
-    return random_sort_operands if path in ("main_one", "spill_one") else finalize_sort_operands
+    the prefix's live rows, unique and ascending; a mesh route the slices
+    the positions sent (LaunchShapes marks its shapes "route")."""
+    if route:
+        return route_sort_operands
+    return random_sort_operands if path in ONE_LEVEL_PATHS else finalize_sort_operands
 
 
 def compare_sort(cases, keys, payload, time_it, reduce_too=False):
@@ -773,11 +848,11 @@ def phase_sort_kernel(device, cases, shapes_by_path):
              "payloads_conserved": True})
 
     def at_shape(path, shape):
-        NL, n = shape
-        keys, counts = sort_operands_for(path)(NL, n, gen, device)
+        NL, n, *route = shape
+        keys, counts = sort_operands_for(path, bool(route))(NL, n, gen, device)
         t = compare_sort(cases, keys, counts, time_it=True, reduce_too=True)
         log({"phase": "kernel", "kernel": SORT["name"], "path": path, "main_path_launch_shape": True,
-             "NL": NL, "n": n, "keys_bit_exact": True, "payloads_conserved": True,
+             "NL": NL, "n": n, "route": bool(route), "keys_bit_exact": True, "payloads_conserved": True,
              "sort_reduce_equal": True, **t})
         return t
 
@@ -983,7 +1058,8 @@ class LaunchShapes:
     """Records the shape of each call of the kernel wrappers on the table
     paths: (NL, na, nb, A's live rows, B's live rows, B's live rows with
     the sentinel key) for the merges, the same and the output width for K1,
-    (NL, n) for the sort, and (n_ops, n, live rows, output width) for K2;
+    (NL, n) for the sort, (NL, n, "route") inside a mesh route, and
+    (n_ops, n, live rows, output width) for K2;
     the kernel phase compares and times the kernels at those shapes.
     ``variant``: consolidate3's keywords, bound to table2.consolidate3 while
     the context is open."""
@@ -1023,7 +1099,7 @@ class LaunchShapes:
         return call
 
     def _sort(self, keys, payload):
-        self.shapes[SORT["name"]].append(tuple(keys.shape))
+        self.shapes[SORT["name"]].append(tuple(keys.shape) + (("route",) if RouteProbe.active else ()))
         return self._reals[(self._lane_sort, "sort_ops")](keys, payload)
 
     def _k2(self, operands, live, num_keys, out_rows=None):
@@ -1116,7 +1192,8 @@ def phase_main(device, tmp, cases):
     """Phases 3-5: the main count with each table, then with the two-level
     table under each split consolidation variant.  Returns {path: ({kernel:
     launches}, LaunchShapes)} for "main" (two-level), "main_one" and
-    "main_<variant>" for each split variant."""
+    "main_<variant>" for each split variant, and (argv, the NumPy count's
+    dump, its k-mers) for the mesh phases."""
     import numpy as np
 
     t0 = time.perf_counter()
@@ -1153,7 +1230,7 @@ def phase_main(device, tmp, cases):
             raise AssertionError(f"{path}: peak device memory {peak} bytes > gpuMemoryLimit {MEMORY_LIMIT}")
         runs[path] = (launches, shapes)
         os.unlink(out)
-    return runs
+    return runs, (argv, want, total)
 
 
 def spill_input(tmp):
@@ -1213,7 +1290,9 @@ def phase_spill(device, tmp):
     each table, then with each table a run with checkpoints stops after the
     snapshot of its first consolidation that follows a spill, and a second
     run resumes it.  Returns {path: ({kernel: launches}, LaunchShapes)} for
-    "spill" (two-level), "spill_one", "resume" and "resume_one"."""
+    "spill" (two-level), "spill_one", "resume" and "resume_one", and (the
+    input directory, the NumPy count's dump, its k-mers) for the mesh's
+    spill phases."""
     import json
 
     import numpy as np
@@ -1359,6 +1438,386 @@ def phase_spill(device, tmp):
                                  f"snapshot's {manifest['records']}")
         runs[path] = (launches, shapes)
         os.unlink(out)
+    return runs, (in_dir, want, total)
+
+
+# The mesh phases: MESH_POSITIONS positions of the mesh engine on the one
+# card, in one process, or in MESH_RANKS processes that share it over gloo.
+MESH_POSITIONS, MESH_RANKS = 4, 2
+# A rank's collectives give up after MESH_COLLECTIVE_TIMEOUT_S; the phase
+# kills every rank once one fails or MESH_WORKER_TIMEOUT_S pass.
+MESH_COLLECTIVE_TIMEOUT_S, MESH_WORKER_TIMEOUT_S = 120, 400
+
+
+class RouteProbe:
+    """While open, wraps parallel.pipeline.route_merge_local: the device
+    memory allocated when each route starts, the peak inside it, its
+    seconds and the rows each position received.  The peak statistics are
+    reset at each route, so the run's peak is the larger of the peaks read
+    there and the peak at the end (run_peak)."""
+
+    active = False  # inside a route (LaunchShapes marks the sort's shapes there)
+
+    def __init__(self, device):
+        from kmer_counter_tpu_torch.parallel import pipeline
+
+        self.device, self._pipeline, self._real = device, pipeline, pipeline.route_merge_local
+        self.routes, self._peak_before = [], 0
+
+    def _route(self, mesh, tables, plan):
+        import torch
+
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(self.device)
+        self._peak_before = max(self._peak_before, torch.cuda.max_memory_allocated(self.device))
+        torch.cuda.reset_peak_memory_stats(self.device)
+        t0 = time.perf_counter()
+        RouteProbe.active = True
+        try:
+            out = list(self._real(mesh, tables, plan))
+        finally:
+            RouteProbe.active = False
+        torch.cuda.synchronize()
+        sorts = sum(int(plan.round_rows(t)[:, p].sum() > 0) for t in range(plan.rounds) for p in mesh.positions)
+        self.routes.append({"s": time.perf_counter() - t0, "NL": int(tables[0][0].shape[0]),
+                            "positions": list(mesh.positions), "received_rows": plan.balance.tolist(),
+                            "rounds": plan.rounds, "sorts": sorts,
+                            "allocated_before": before, "peak": torch.cuda.max_memory_allocated(self.device)})
+        return out
+
+    def run_peak(self):
+        import torch
+
+        return max(self._peak_before, torch.cuda.max_memory_allocated(self.device))
+
+    def route_entry(self):
+        """The finalize's route (the last), with the bytes it added to what
+        was allocated and the model's reckoning of them (budget.py: each
+        position's received rows copied into one buffer, its sort_reduce,
+        and the outputs of the positions before it)."""
+        from kmer_counter_tpu_torch import budget as bg
+
+        if not self.routes:
+            return {}
+        r = self.routes[-1]
+        NL, rows = r["NL"], [r["received_rows"][p] for p in r["positions"]]
+        out_bytes = 4 * (NL + 1)
+        model = max(out_bytes * sum(rows[:i]) + bg.route_bytes_per_row(NL) * n for i, n in enumerate(rows))
+        return {"route_s": r["s"], "received_rows": r["received_rows"], "route_rounds": r["rounds"],
+                "route_allocated_before": r["allocated_before"],
+                "route_peak_bytes": r["peak"], "route_added_bytes": r["peak"] - r["allocated_before"],
+                "route_model_added_bytes": model, "routes": len(self.routes)}
+
+    def route_launches(self):
+        """Sort launches of the routes: one for each round of each position
+        of this process that received rows in it."""
+        return sum(r["sorts"] for r in self.routes)
+
+    def __enter__(self):
+        self._pipeline.route_merge_local = self._route
+        return self
+
+    def __exit__(self, *exc):
+        self._pipeline.route_merge_local = self._real
+
+
+def run_mesh_path(device, argv, mesh):
+    """One run of the mesh engine: engine.run_count with the CLI's options
+    (Options.from_argv) on ``mesh``.  The launch counts are set to 0 just
+    before it and read just after.  Returns (wall s, peak device bytes,
+    {kernel: launches}, LaunchShapes, RunStats, RouteProbe)."""
+    import torch
+
+    from kmer_counter_tpu_torch import engine
+    from kmer_counter_tpu_torch.config import Options
+
+    opts = Options.from_argv(argv)
+    with LaunchShapes() as shapes, RouteProbe(device) as probe:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = engine.run_count(opts, device, mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        peak = probe.run_peak()
+    return wall, peak, launches, shapes, stats, probe
+
+
+def check_mesh_launches(path, impl, launches, position_consolidations, route_launches, positions):
+    """K1 once for each consolidation of each position (two-level), the
+    sort once for each (one-level) and once for each position a route
+    gave rows to."""
+    pc = position_consolidations
+    if pc < positions:
+        raise AssertionError(f"{path}: {pc} position consolidations (want >= {positions})")
+    want_k1, want_sort = (pc, route_launches) if impl == "two" else (0, pc + route_launches)
+    if launches[K1["name"]] != want_k1 or launches[SORT["name"]] != want_sort:
+        raise AssertionError(f"{path}: K1 launched {launches[K1['name']]} times (want {want_k1}), the sort "
+                             f"{launches[SORT['name']]} (want {want_sort})")
+
+
+def phase_mesh(device, tmp, main_ctx):
+    """Phase 12: the main count on a mesh of MESH_POSITIONS positions that
+    share the card, with each table ("mesh", "mesh_one").  Returns {path:
+    ({kernel: launches}, LaunchShapes)}."""
+    import torch
+
+    from kmer_counter_tpu_torch.parallel.mesh import make_mesh
+
+    argv, want, total = main_ctx
+    out = argv[-1].split("=", 1)[1]
+    runs = {}
+    for path, impl in (("mesh", "two"), ("mesh_one", "one")):
+        mesh = make_mesh(devices=[device] * MESH_POSITIONS)
+        wall, peak, launches, shapes, stats, probe = run_mesh_path(
+            device, argv + [f"tableImpl={impl}", "verbose=0"], mesh)
+        check_dump(out, want, path)
+        pc = stats.metrics["counters"]["position_consolidations"]
+        check_mesh_launches(path, impl, launches, pc, probe.route_launches(), MESH_POSITIONS)
+        log({"phase": "mesh", "path": path, "positions": MESH_POSITIONS, "position_devices": str(device),
+             "cmd": "engine.run_count(Options.from_argv([" + " ".join(argv[:3]) + f" tableImpl={impl}]), "
+             f"mesh=make_mesh(devices=[cuda]*{MESH_POSITIONS}))", "wall_s": wall, "kmers_per_s": total / wall,
+             "distinct_kmers": stats.distinct_kmers, "consolidations": stats.consolidations,
+             "position_consolidations": pc, "launches": launches,
+             "launch_shapes": {k: v for k, v in shapes.shapes.items() if v}, **probe.route_entry(),
+             "timers_s": stats.metrics["timers_s"], "peak_device_bytes": peak, "gpu_memory_limit": MEMORY_LIMIT,
+             "byte_identical_to_numpy_count": True})
+        if peak > MEMORY_LIMIT:
+            raise AssertionError(f"{path}: peak device memory {peak} bytes > gpuMemoryLimit {MEMORY_LIMIT}")
+        runs[path] = (launches, shapes)
+        os.unlink(out)
+        del mesh
+        torch.cuda.empty_cache()
+    return runs
+
+
+class WorkerShapes:
+    """The launch shapes a mesh worker reported, as LaunchShapes holds them."""
+
+    def __init__(self, reports):
+        self.shapes = {name: [] for name in (K1["name"], SORT["name"], K2["name"], *MERGES)}
+        for report in reports:
+            for name, shapes in report["launch_shapes"].items():
+                self.shapes[name] += [tuple(s) for s in shapes]
+
+
+def mesh_worker(rank, world, store, runs):
+    """One rank of phase 13 (``chip_smoke.py --mesh-worker RANK WORLD STORE
+    RUNS_JSON``): a gloo process group over the FileStore STORE, a mesh of
+    MESH_POSITIONS / WORLD positions on cuda:0, and one run of the mesh
+    engine for each [path, argv] of RUNS_JSON, in order; prints each run's
+    report as one JSON line."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from kmer_counter_tpu_torch.parallel.mesh import make_mesh
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py --mesh-worker: CUDA is not available")
+    device = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=MESH_COLLECTIVE_TIMEOUT_S))
+    try:
+        for path, argv in runs:
+            mesh = make_mesh(devices=[device] * (MESH_POSITIONS // world))
+            wall, peak, launches, shapes, stats, probe = run_mesh_path(device, argv, mesh)
+            log({"mesh_worker": rank, "path": path, "positions": mesh.positions, "wall_s": wall,
+                 "peak_device_bytes": peak, "launches": launches,
+                 "launch_shapes": {k: v for k, v in shapes.shapes.items() if v},
+                 "position_consolidations": stats.metrics["counters"]["position_consolidations"],
+                 "route_launches": probe.route_launches(), **probe.route_entry(),
+                 "distinct_kmers": stats.distinct_kmers, "reads": stats.reads, "timers_s": stats.metrics["timers_s"]})
+            del probe, stats
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh_mp(device, tmp, main_ctx):
+    """Phase 13: the main count in MESH_RANKS processes that share the card
+    (gloo: NCCL takes one rank a device), each owning MESH_POSITIONS /
+    MESH_RANKS positions, with each table ("mesh_mp", "mesh_mp_one"; one
+    launch of the ranks runs both, in turn): the part files in name order
+    are the NumPy count's dump.  Returns {path: ({kernel: launches},
+    WorkerShapes)}, launches summed over the ranks."""
+    argv, want, total = main_ctx
+    d = os.path.join(tmp, "mesh_mp")
+    os.makedirs(d)
+    paths = (("mesh_mp", "two"), ("mesh_mp_one", "one"))
+    work = [[path, [a for a in argv if not a.startswith("outputFile=")] + [
+        f"outputFile={os.path.join(d, f'out_{impl}.bin')}", f"tableImpl={impl}", "verbose=0"]] for path, impl in paths]
+    store = os.path.join(d, "store")
+    t0 = time.perf_counter()
+    logs = [(open(os.path.join(d, f"rank{r}.out"), "w+"), open(os.path.join(d, f"rank{r}.err"), "w+"))
+            for r in range(MESH_RANKS)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-worker", str(rank),
+                               str(MESH_RANKS), store, json.dumps(work)],
+                              stdout=logs[rank][0], stderr=logs[rank][1], text=True, cwd=HERE)
+             for rank in range(MESH_RANKS)]
+    try:
+        # Wait for every rank; stop at the first that fails, or at the deadline.
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.perf_counter() - t0 > MESH_WORKER_TIMEOUT_S:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    reports = []
+    for rank, (p, (out_fh, err_fh)) in enumerate(zip(procs, logs)):
+        out_fh.seek(0)
+        err_fh.seek(0)
+        stdout, stderr = out_fh.read(), err_fh.read()
+        out_fh.close()
+        err_fh.close()
+        if p.returncode != 0:
+            raise AssertionError(f"mesh_mp: rank {rank} exited {p.returncode}:\n{stderr[-4000:]}")
+        reports += [json.loads(line) for line in stdout.splitlines() if line.startswith('{"mesh_worker"')]
+    launch_s = time.perf_counter() - t0
+    runs = {}
+    for path, impl in paths:
+        mine = [r for r in reports if r["path"] == path]
+        if len(mine) != MESH_RANKS:
+            raise AssertionError(f"{path}: {len(mine)} rank reports (want {MESH_RANKS})")
+        parts = sorted(f for f in os.listdir(d) if f.startswith(f"out_{impl}.bin.part"))
+        manifests = sorted(f for f in os.listdir(d) if f.startswith(f"out_{impl}.bin.manifest."))
+        if parts != [f"out_{impl}.bin.part{p:05d}" for p in range(MESH_POSITIONS)] or len(manifests) != MESH_RANKS:
+            raise AssertionError(f"{path}: parts {parts}, manifests {manifests}")
+        data = b"".join(open(os.path.join(d, f), "rb").read() for f in parts)
+        if data != want:
+            raise AssertionError(f"{path}: the parts in name order differ from the independent NumPy count")
+        for r in mine:
+            check_mesh_launches(f"{path} rank {r['mesh_worker']}", impl, r["launches"], r["position_consolidations"],
+                                r["route_launches"], MESH_POSITIONS // MESH_RANKS)
+        launches = {name: sum(r["launches"][name] for r in mine) for name in mine[0]["launches"]}
+        peaks = [r["peak_device_bytes"] for r in mine]
+        wall = max(r["wall_s"] for r in mine)
+        log({"phase": "mesh_mp", "path": path, "ranks": MESH_RANKS, "positions": MESH_POSITIONS,
+             "process_group": "gloo (FileStore)", "position_devices": str(device), "wall_s": wall,
+             "kmers_per_s": total / wall, "ranks_launch_s": launch_s, "parts": parts, "manifests": manifests,
+             "launches": launches, "ranks_reports": mine, "peak_device_bytes_by_rank": peaks,
+             "gpu_memory_limit": MEMORY_LIMIT, "byte_identical_to_numpy_count": True})
+        if sum(peaks) > MEMORY_LIMIT:
+            raise AssertionError(f"{path}: peak device memory {peaks} bytes (summed over the ranks) > "
+                                 f"gpuMemoryLimit {MEMORY_LIMIT}")
+        runs[path] = (launches, WorkerShapes(mine))
+        for f in parts + manifests:
+            os.unlink(os.path.join(d, f))
+    return runs
+
+
+def phase_mesh_spill(device, tmp, spill_ctx):
+    """Phases 14-15: the spill phase's count (gpuMemoryLimit=2e9) on a mesh
+    of MESH_POSITIONS positions on the card, two-level ("mesh_spill"): the
+    positions spill their prefixes as runs over the whole key space, and
+    the host merges them; then the same with checkpointDir and
+    checkpointEvery=1, stopped right after the first snapshot that lists a
+    spill run, and resumed with no further snapshots ("mesh_resume").
+    Returns {path: ({kernel: launches}, LaunchShapes)}."""
+    import glob
+
+    import torch
+
+    from kmer_counter_tpu_torch import engine
+    from kmer_counter_tpu_torch.parallel.mesh import make_mesh
+
+    in_dir, want, total = spill_ctx
+    out = os.path.join(tmp, "mesh_spill_out.bin")
+
+    def argv(name, *extra):
+        return [f"kmerLength={MAIN_K}", "canonical=true", f"gpuMemoryLimit={SPILL_LIMIT}",
+                f"inputFileLocation={in_dir}", f"outputFile={out}",
+                f"tempFileLocation={os.path.join(tmp, name + '_tmp')}", "noOfMergersAtOnce=4",
+                "noOfMergeThreads=4", "tableImpl=two", "verbose=0", *extra]
+
+    def entry(path, wall, peak, launches, shapes, stats, rec):
+        pc = stats.metrics["counters"]["position_consolidations"]
+        check_mesh_launches(path, "two", launches, pc, 0, MESH_POSITIONS)
+        if not rec.merges:
+            raise AssertionError(f"{path}: no native merge ran")
+        if peak > SPILL_LIMIT:
+            raise AssertionError(f"{path}: peak device memory {peak} bytes > gpuMemoryLimit {SPILL_LIMIT}")
+        return {"phase": path, "positions": MESH_POSITIONS, "position_devices": str(device),
+                "cmd": "engine.run_count(Options.from_argv([" + " ".join(argv(path)[:3])
+                + " tempFileLocation=... noOfMergersAtOnce=4 noOfMergeThreads=4 tableImpl=two]), "
+                f"mesh=make_mesh(devices=[cuda]*{MESH_POSITIONS}))", "wall_s": wall, "kmers_per_s": total / wall,
+                "distinct_kmers": stats.distinct_kmers, "consolidations": stats.consolidations,
+                "position_consolidations": pc, "spilled_runs": stats.spilled_runs, "spill_runs_written": rec.runs,
+                "native_merges": rec.merges, "timers_s": stats.metrics["timers_s"], "launches": launches,
+                "launch_shapes": {k: v for k, v in shapes.shapes.items() if v}, "peak_device_bytes": peak,
+                "gpu_memory_limit": SPILL_LIMIT, "byte_identical_to_numpy_count": True}
+
+    runs = {}
+    with SpillRecorder() as rec:
+        wall, peak, launches, shapes, stats, _ = run_mesh_path(
+            device, argv("mesh_spill"), make_mesh(devices=[device] * MESH_POSITIONS))
+    check_dump(out, want, "mesh_spill")
+    mid_run = len(rec.runs) - MESH_POSITIONS  # the last MESH_POSITIONS runs are the final tables
+    log({**entry("mesh_spill", wall, peak, launches, shapes, stats, rec), "mid_run_spill_runs": mid_run})
+    if mid_run < 2 * MESH_POSITIONS:
+        raise AssertionError(f"mesh_spill: {mid_run} runs spilled mid-run (want >= {2 * MESH_POSITIONS})")
+    runs["mesh_spill"] = (launches, shapes)
+    os.unlink(out)
+    torch.cuda.empty_cache()
+
+    ck = os.path.join(tmp, "mesh_resume_ck")
+    resume_argv = argv("mesh_resume", f"checkpointDir={ck}", "checkpointEvery=1")
+    # The resumed run reads the snapshot and takes no more of them.
+    resumed_argv = argv("mesh_resume", f"checkpointDir={ck}", "checkpointEvery=0")
+    real_save, real_absorb = engine.MeshCountEngine._save_mesh_checkpoint, engine._absorb
+
+    def save(self, counter, stats_):
+        real_save(self, counter, stats_)
+        if self._scheduler is not None and self._scheduler.snapshot_runs():
+            raise Crash
+
+    engine.MeshCountEngine._save_mesh_checkpoint = save
+    try:
+        run_mesh_path(device, resume_argv, make_mesh(devices=[device] * MESH_POSITIONS))
+        raise AssertionError("mesh_resume: the run that should stop after a snapshot ran to its end")
+    except Crash:
+        pass
+    finally:
+        engine.MeshCountEngine._save_mesh_checkpoint = real_save
+    torch.cuda.empty_cache()
+    with open(sorted(glob.glob(os.path.join(ck, "mesh.e*.p000.json")))[-1]) as fh:
+        manifest = json.load(fh)
+    counted = [0]
+
+    def absorb(stats_, chunk):
+        counted[0] += chunk.n_reads
+        real_absorb(stats_, chunk)
+
+    engine._absorb = absorb
+    try:
+        with SpillRecorder() as rec:
+            wall, peak, launches, shapes, stats, _ = run_mesh_path(
+                device, resumed_argv, make_mesh(devices=[device] * MESH_POSITIONS))
+    finally:
+        engine._absorb = real_absorb
+    check_dump(out, want, "mesh_resume")
+    listed = sorted(os.path.basename(p) for p in manifest.get("scheduler_runs", {}))
+    merged = {name for m in rec.merges for name in m["inputs"]}
+    new_numbers = [int(r["file"].split("_")[1].split(".")[0]) for r in rec.runs]
+    skipped = SPILL_READS - counted[0]
+    log({**entry("mesh_resume", wall, peak, launches, shapes, stats, rec), "snapshot_epoch": manifest["epoch"],
+         "reads_skipped": skipped, "snapshot_reads_absorbed": manifest["reads_absorbed"], "chunks": stats.chunks,
+         "snapshot_runs": listed, "reads": stats.reads})
+    if not 0 < skipped < SPILL_READS or skipped != manifest["reads_absorbed"] or stats.reads != SPILL_READS:
+        raise AssertionError(f"mesh_resume: counted {counted[0]} reads itself; the snapshot absorbed "
+                             f"{manifest['reads_absorbed']}")
+    if not listed or not set(listed) <= merged:
+        raise AssertionError(f"mesh_resume: the snapshot lists {listed}; the merges read {sorted(merged)}")
+    if not new_numbers or min(new_numbers) <= max(int(n.split("_")[1].split(".")[0]) for n in listed):
+        raise AssertionError(f"mesh_resume: new runs {new_numbers} do not follow the snapshot's {listed}")
+    runs["mesh_resume"] = (launches, shapes)
+    os.unlink(out)
     return runs
 
 
@@ -1615,7 +2074,18 @@ def kernel_entry(spec, runs, timing):
                                else {})}
 
 
+def timed(phase, *args):
+    """phase(*args), then a line with its seconds."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    log({"phase_seconds": phase.__name__, "seconds": time.perf_counter() - t0})
+    return out
+
+
 def main():
+    if sys.argv[1:2] == ["--mesh-worker"] and len(sys.argv) == 6:
+        require_checkout()
+        return mesh_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], json.loads(sys.argv[5]))
     profile = sys.argv[1:] == ["--profile"]
     if sys.argv[1:] and not profile:
         raise SystemExit(f"usage: {sys.argv[0]} [--profile]")
@@ -1637,22 +2107,29 @@ def main():
             phase_profile(device, tmp)
             print(smi_line(), flush=True)
             return
-        runs = phase_main(device, tmp, cases)
+        runs, main_ctx = timed(phase_main, device, tmp, cases)
         torch.cuda.empty_cache()
-        runs.update(phase_spill(device, tmp))
+        runs.update(timed(phase_mesh, device, tmp, main_ctx))
+        runs.update(timed(phase_mesh_mp, device, tmp, main_ctx))
+        del main_ctx
+        spill_runs, spill_ctx = timed(phase_spill, device, tmp)
+        runs.update(spill_runs)
+        torch.cuda.empty_cache()
+        runs.update(timed(phase_mesh_spill, device, tmp, spill_ctx))
+        del spill_ctx
         torch.cuda.empty_cache()
 
         def shapes_of(name):
             return {path: shapes.shapes[name] for path, (_, shapes) in runs.items()}
 
-        timings = {K1["name"]: phase_kernel(device, cases, shapes_of(K1["name"])),
-                   SORT["name"]: phase_sort_kernel(device, cases, shapes_of(SORT["name"])),
-                   K2["name"]: phase_k2_kernel(device, cases, shapes_of(K2["name"])),
-                   **phase_merge_kernels(device, cases, {name: shapes_of(name) for name in MERGES})}
+        timings = {K1["name"]: timed(phase_kernel, device, cases, shapes_of(K1["name"])),
+                   SORT["name"]: timed(phase_sort_kernel, device, cases, shapes_of(SORT["name"])),
+                   K2["name"]: timed(phase_k2_kernel, device, cases, shapes_of(K2["name"])),
+                   **timed(phase_merge_kernels, device, cases, {name: shapes_of(name) for name in MERGES})}
         torch.cuda.empty_cache()
-        phase_mid_one(device, tmp)
-        phase_small(tmp, cases)
-        phase_profile_flag(tmp)
+        timed(phase_mid_one, device, tmp)
+        timed(phase_small, tmp, cases)
+        timed(phase_profile_flag, tmp)
     log({"phase": "done", "seconds": time.perf_counter() - t_all})
 
     print(smi_line(), flush=True)

@@ -74,15 +74,22 @@ class Chunk:
     windows: int
 
 
+def route_bytes_per_row(NL: int) -> int:
+    """A round of the mesh's route (parallel.shuffle.route_merge_local) for
+    one position: the rows it receives, copied into one buffer, then
+    ``sort_reduce`` over them."""
+    return 4 * (NL + 1) + sort_reduce_bytes_per_row(NL)
 
 
 def two_level_peaks(NL: int, cp: int, cr: int, raw_rows: int, chunk: Chunk,
-                    grow_from: int | None = None, finalize_rows: int | None = None) -> dict[str, int]:
+                    grow_from: int | None = None, finalize_rows: int | None = None,
+                    route_rows: int | None = None) -> dict[str, int]:
     """Peak bytes of each step of a consolidation of ``raw_rows`` raw rows
     into a prefix of ``cp`` slots (grown from ``grow_from`` slots), then
     of the chunk steps that follow, and (``finalize_rows``) of the
-    finalize's sort of that many live rows, with the raw region freed.
-    Keys are the table stages' names."""
+    finalize's sort of that many live rows, with the raw region freed;
+    (``route_rows``) of a mesh position's route of that many received
+    rows beside its prefix.  Keys are the table stages' names."""
     prefix, raw = 4 * (NL + 1) * cp, 4 * NL * cr
     held = prefix + raw + chunk.read_bytes + _ALLOCATOR_SLACK  # the last chunk's reads stay on the card
     peaks = {
@@ -97,13 +104,18 @@ def two_level_peaks(NL: int, cp: int, cr: int, raw_rows: int, chunk: Chunk,
     if finalize_rows is not None:
         peaks["finalize2"] = (prefix + chunk.read_bytes + _ALLOCATOR_SLACK
                               + sort_reduce_bytes_per_row(NL) * min(finalize_rows, cp))
+    if route_rows is not None:
+        peaks["route_merge_local"] = (prefix + chunk.read_bytes + _ALLOCATOR_SLACK
+                                      + route_bytes_per_row(NL) * route_rows)
     return peaks
 
 
-def one_level_peaks(NL: int, capacity: int, chunk: Chunk, grow_from: int | None = None) -> dict[str, int]:
+def one_level_peaks(NL: int, capacity: int, chunk: Chunk, grow_from: int | None = None,
+                    route_rows: int | None = None) -> dict[str, int]:
     """Peak bytes of each step of the one-level table at ``capacity``
     slots (grown from ``grow_from``): the chunk's extraction and append,
-    and a consolidation (``sort_reduce`` over every slot)."""
+    a consolidation (``sort_reduce`` over every slot), and (``route_rows``)
+    a mesh position's route of that many received rows."""
     table = 4 * (NL + 1) * capacity
     held = table + chunk.read_bytes + _ALLOCATOR_SLACK
     peaks = {
@@ -112,6 +124,8 @@ def one_level_peaks(NL: int, capacity: int, chunk: Chunk, grow_from: int | None 
     }
     if grow_from is not None and grow_from < capacity:
         peaks["grow"] = held + 4 * (NL + 1) * grow_from
+    if route_rows is not None:
+        peaks["route_merge_local"] = held + route_bytes_per_row(NL) * route_rows
     return peaks
 
 
@@ -122,27 +136,32 @@ def _most_slots(limit: int, peaks_at) -> int:
     return max(min((limit - at0[step]) // (at1[step] - at0[step]) for step in at0), 0)
 
 
-def max_prefix_slots(opts, NL: int, cr: int, chunk: Chunk) -> int:
+def max_prefix_slots(opts, NL: int, cr: int, chunk: Chunk, routed: bool = False) -> int:
     """The most slots the two-level prefix may grow to in a run with a
     ``tempFileLocation``: with ``tableSlots`` set, prefix and raw region
     together twice that (the JAX engine's cap); otherwise every step within
     ``gpuMemoryLimit``, with a full raw region of ``cr`` rows and a
-    finalize that sorts the whole prefix.  grow2 holds less than K1
-    (``grow_from`` < ``cp``), so it sets no cap."""
+    finalize that sorts the whole prefix (``routed``: a mesh position, whose
+    route receives at most as many rows a round as its prefix may hold:
+    the engine passes this cap to the route as its row budget, and a range
+    that the splitters crowd past it arrives in rounds).  grow2 holds less
+    than K1 (``grow_from`` < ``cp``), so it sets no cap."""
     if opts.table_slots:
         return 2 * opts.table_slots - cr
-    return _most_slots(opts.memory_limit_bytes,
-                       lambda cp: two_level_peaks(NL, cp, cr, cr, chunk, finalize_rows=cp))
+    return _most_slots(opts.memory_limit_bytes, lambda cp: two_level_peaks(
+        NL, cp, cr, cr, chunk, finalize_rows=cp, route_rows=cp if routed else None))
 
 
-def max_table_slots(opts, NL: int, chunk: Chunk) -> int:
+def max_table_slots(opts, NL: int, chunk: Chunk, routed: bool = False) -> int:
     """The most slots the one-level table may grow to in a run with a
     ``tempFileLocation``: twice ``tableSlots`` when set, as in the JAX
     engine, else every step within ``gpuMemoryLimit`` (the growth copy
-    holds less than the consolidation's sort)."""
+    holds less than the consolidation's sort; ``routed`` as in
+    max_prefix_slots)."""
     if opts.table_slots:
         return 2 * opts.table_slots
-    return _most_slots(opts.memory_limit_bytes, lambda capacity: one_level_peaks(NL, capacity, chunk))
+    return _most_slots(opts.memory_limit_bytes, lambda capacity: one_level_peaks(
+        NL, capacity, chunk, route_rows=capacity if routed else None))
 
 
 def next_prefix(cap: int | None, cp: int, live: int, raw: int) -> tuple[int, bool]:

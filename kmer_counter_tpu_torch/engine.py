@@ -24,8 +24,12 @@ outstanding spill runs are saved (checkpoint.py), and a run with the same
 ``checkpointDir`` resumes from the snapshot.  ``profile=true`` traces the
 run with torch.profiler (metrics.device_trace).
 
-Not ported yet (raises NotImplementedError): the multi-device mesh engine
-(``meshShape`` or more than one rank).
+``MeshCountEngine`` runs the same loop over the positions of a mesh
+(parallel): each counts its rows of every chunk into a table of its own,
+and the finalize routes each record to the position that owns its key
+range; with several processes each writes its ranges as part files.
+``run_count`` takes it for ``meshShape``, more than one visible card or
+more than one rank.
 """
 
 from __future__ import annotations
@@ -47,15 +51,10 @@ from kmer_counter_tpu_torch.io.fastq import DirectoryInput, ParallelIngest
 from kmer_counter_tpu_torch.metrics import Metrics, device_trace
 from kmer_counter_tpu_torch.ops.pipeline import chunk_slots
 from kmer_counter_tpu_torch.ops.u32 import MASK, SENTINEL, from_numpy, to_numpy
+from kmer_counter_tpu_torch.parallel.mesh import allgather_host, global_any, global_max_int, make_mesh
+from kmer_counter_tpu_torch.parallel.pipeline import ShardedCounter, ShardedCounter2
 
 _END = object()
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to kmer_counter_tpu_torch yet "
-        "(the JAX package kmer_counter_tpu has it)"
-    )
 
 
 @dataclass
@@ -100,12 +99,15 @@ def plan_chunks(opts: Options, line_length: int) -> tuple[int, int]:
     return reads_per_chunk, table_slots
 
 
-def _make_source(opts: Options):
+def _make_source(opts: Options, shard=None):
     """The order-preserving parser pool when ingestThreads > 1, else the
-    sequential reader; both give the same chunk stream."""
+    sequential reader; both give the same chunk stream.  ``shard=(rank,
+    processes)``: this process's share of the input (io.fastq: whole files
+    round-robin, or byte ranges when there are fewer files than
+    processes)."""
     if opts.ingest_threads > 1:
-        return ParallelIngest(opts.input_dir, threads=opts.ingest_threads)
-    return DirectoryInput(opts.input_dir)
+        return ParallelIngest(opts.input_dir, threads=opts.ingest_threads, shard=shard)
+    return DirectoryInput(opts.input_dir, shard=shard)
 
 
 def _file_key(path: str) -> str:
@@ -147,8 +149,6 @@ class CountEngine:
             raise ValueError("outputFile is required")
         if opts.table_impl not in ("one", "two", "auto"):
             raise ValueError(f"unknown tableImpl {opts.table_impl!r}")
-        if opts.mesh_shape is not None or int(os.environ.get("WORLD_SIZE", "1")) > 1:
-            raise _not_ported("the multi-device mesh engine (meshShape / several ranks)")
         device = torch.device("cuda") if device is None else torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device} requested but CUDA is not available")
@@ -560,13 +560,350 @@ class CountEngine:
             return lanes, to_numpy(table.counts[:n])
 
 
-def run_count(opts: Options, device: torch.device | None = None) -> RunStats:
-    """Run the single-device engine on ``device`` (default: cuda).
+class MeshCountEngine(CountEngine):
+    """The count engine over a mesh (counterpart of the JAX
+    ``MeshCountEngine``): the chunk loop drives a ``ShardedCounter2``
+    (two-level) or ``ShardedCounter`` (one-level) whose positions count
+    their rows of each chunk, and the finalize merges the positions by key
+    range (parallel.shuffle) in place of a host gather or a disk merge.
+
+    ``mesh``: the positions (parallel.mesh.make_mesh); by default the first
+    ``meshShape[0]`` visible cards (all when unset) of this process, and
+    with several ranks the process group of torchrun's variables.  With
+    several processes each reads its own files (round-robin by rank), every
+    collective runs in lockstep, and each process writes the ranges of its
+    positions as ``<outputFile>.partNNNNN`` files and a
+    ``<outputFile>.manifest.<rank>.json``.
+    """
+
+    def __init__(self, opts: Options, device: torch.device | None = None, mesh=None):
+        super().__init__(opts, mesh.local_devices[0] if mesh is not None else device)
+        self.mesh = mesh if mesh is not None else make_mesh(
+            opts.mesh_shape[0] if opts.mesh_shape else None, device_type=self.device.type)
+        self._pos_runs = None  # several processes: the spill runs of each position
+        self._route_cap = None  # the most rows a position receives a round of a route (spilling on)
+        self.route_balance = None  # rows each position received at the finalize's route
+        self.route_rounds = 0  # the most rounds a route of the run took (or would have taken)
+
+    def _position_cap(self, counter, NL: int, line_length: int) -> int:
+        """The most slots a position's prefix (two-level) or table
+        (one-level) may take before it spills: the single-device cap
+        (budget.py) of a position's chunk, with the route's step, under
+        ``gpuMemoryLimit / D`` (or ``tableSlots / D``): the limit is the
+        whole mesh's, as in the JAX package."""
+        import dataclasses
+
+        opts, D = self.opts, self.mesh.size
+        per = dataclasses.replace(opts, memory_limit_bytes=max(opts.memory_limit_bytes // D, 1),
+                                  table_slots=max(opts.table_slots // D, 1) if opts.table_slots else None)
+        chunk = bg.Chunk(counter.reads_per_device * line_length, counter.chunk_slots)
+        if isinstance(counter, ShardedCounter2):
+            return bg.max_prefix_slots(per, NL, counter.CR, chunk, routed=True)
+        return bg.max_table_slots(per, NL, chunk, routed=True)
+
+    def _spill_counter(self, counter, stats: RunStats, metrics: Metrics):
+        """Write the counter's consolidated state to disk as sorted runs
+        (the counter empties it after).  One process: each position's
+        table, a run over the whole key space, to the merge scheduler.
+        Several: the records are routed to their owners first (every
+        process reaches this point in lockstep: the trigger is
+        host-mirrored), then each process writes a run per position it
+        owns (a range that arrives in rounds, a run per round), and the end
+        merges each range's runs into its part."""
+        from kmer_counter_tpu_torch.io import spill as spill_io
+
+        opts = self.opts
+        with metrics.timer("spill"):
+            if self.mesh.world > 1:
+                if self._pos_runs is None:
+                    self._pos_runs = {}
+                os.makedirs(opts.temp_dir, exist_ok=True)
+                for pos, lanes, counts in counter.route_live(self._route_cap):
+                    stats.spilled_runs += 1
+                    path = os.path.join(opts.temp_dir, f"spill_pos{pos:05d}_{stats.spilled_runs:06d}.run")
+                    self._pos_runs.setdefault(pos, []).append(spill_io.write_run(path, lanes, counts))
+                    if opts.verbose:
+                        print(f"[engine] spilled range {pos}: {len(counts)} records -> {path}")
+                return
+            if self._scheduler is None:
+                self._scheduler = self._merge_scheduler()
+            for lanes, counts in counter.live_runs():
+                stats.spilled_runs += 1
+                path = os.path.join(opts.temp_dir, f"spill_{stats.spilled_runs:06d}.run")
+                self._scheduler.add_run(spill_io.write_run(path, lanes, counts))
+                if opts.verbose:
+                    print(f"[engine] spilled {len(counts)} records -> {path}")
+
+    def _save_mesh_checkpoint(self, counter, stats: RunStats):
+        """Snapshot the mesh run (checkpoint.mesh_save) at a consolidation:
+        this process's position tables, the reads absorbed, the per-file
+        manifest, the frozen splitters and the outstanding spill runs."""
+        from kmer_counter_tpu_torch import checkpoint as ckpt
+
+        ckpt.mesh_save(
+            self.opts.checkpoint_dir, self.opts, stats.consolidations, counter.export_positions(), stats.reads,
+            stats.per_file, mesh_size=self.mesh.size, splitters=counter.splitters, pos_runs=self._pos_runs,
+            scheduler_runs=self._scheduler.snapshot_runs() if self._scheduler is not None else None,
+            process=self.mesh.rank, processes=self.mesh.world,
+        )
+
+    def _load_mesh_checkpoint(self, counter, stats: RunStats, cap, spill):
+        """Resume from the newest complete mesh snapshot, agreed in
+        lockstep (every process resumes the same epoch, or none does).
+        Returns the MeshSnapshot or None."""
+        import re
+        import sys
+
+        from kmer_counter_tpu_torch import checkpoint as ckpt
+
+        opts, mesh = self.opts, self.mesh
+        if not opts.checkpoint_dir:
+            return None
+        resumed = ckpt.mesh_load(opts.checkpoint_dir, opts, mesh.size, mesh.positions,
+                                 process=mesh.rank, processes=mesh.world)
+        epochs = allgather_host(mesh, np.array([resumed.epoch if resumed is not None else -1], np.int64))
+        if epochs.min() != epochs.max():
+            print("[checkpoint] processes disagree on the resume epoch — recounting from scratch",
+                  file=sys.stderr)
+            return None
+        if resumed is None:
+            return None
+        stats.reads = resumed.reads_absorbed
+        stats.per_file = dict(resumed.files or {})
+        stats.consolidations = resumed.epoch
+        if resumed.pos_runs:
+            self._pos_runs = {int(p): list(v) for p, v in resumed.pos_runs.items()}
+            # Run numbers restart past every existing file, so re-registered
+            # runs (and orphans of the crashed run) are never overwritten.
+            seqs = [0]
+            if opts.temp_dir and os.path.isdir(opts.temp_dir):
+                for name in os.listdir(opts.temp_dir):
+                    m = re.search(r"_(\d+)\.run$", name)
+                    if m:
+                        seqs.append(int(m.group(1)))
+            stats.spilled_runs = max(seqs)
+        if resumed.scheduler_runs:
+            self._resume_spill(resumed.scheduler_runs, stats)
+        counter.import_positions(resumed.items, resumed.splitters, cap, spill)
+        if opts.verbose:
+            total = sum(len(c) for _, _, c, _ in resumed.items)
+            print(f"[engine] resumed mesh checkpoint epoch {resumed.epoch}: {total} records (this process), "
+                  f"{resumed.reads_absorbed} reads absorbed")
+        return resumed
+
+    def run(self) -> RunStats:
+        opts, mesh = self.opts, self.mesh
+        k = opts.kmer_length
+        stats = RunStats()
+        metrics = Metrics()
+        t_start = time.perf_counter()
+        D, multi = mesh.size, mesh.world > 1
+
+        source = _make_source(opts, shard=(mesh.rank, mesh.world) if multi else None)
+        usable = [L for L in source.probe_line_lengths() if L >= k]
+        if multi:
+            # The chunk shape must agree on every process (each step is
+            # collective): the largest usable line length of any.
+            longest = global_max_int(mesh, max(usable, default=0))
+            usable = [longest] if longest >= k else []
+        if not usable:
+            dump_table(opts.output_file, np.zeros((0, records.active_lanes(k)), np.uint32), np.zeros(0, np.uint32))
+            stats.wall_seconds = time.perf_counter() - t_start
+            return stats
+        line_length = max(usable)
+        reads_per_chunk, table_slots = plan_chunks(opts, line_length)
+        rpd = max(reads_per_chunk // D, 1)
+        NL = records.active_lanes(k)
+        # Chunks from shorter files are padded with zero bytes, which
+        # encode as invalid bases: one counter at the longest line length.
+        per_pos_slots = max(table_slots // D, 4 * rpd * (line_length - k + 1))
+        if opts.table_impl == "one":
+            counter = ShardedCounter(mesh, k, opts.canonical, per_pos_slots, rpd, line_length)
+        else:
+            cp = max(per_pos_slots // 4, 1)
+            counter = ShardedCounter2(mesh, k, opts.canonical, cp, max(per_pos_slots - cp, 1), rpd, line_length)
+        if opts.verbose:
+            print(f"[engine] mesh={D} positions ({len(mesh.positions)} in this process) k={k} "
+                  f"canonical={opts.canonical} L={line_length} reads/position/chunk={rpd} "
+                  f"slots/position={per_pos_slots} device={self.device}")
+        cap = self._position_cap(counter, NL, line_length) if opts.temp_dir else None
+        # A route gives a position at most as many rows a round as its
+        # table may hold: budget.py reckons the route's step at that size.
+        self._route_cap = cap
+
+        def spill(c):
+            self._spill_counter(c, stats, metrics)
+
+        resumed = self._load_mesh_checkpoint(counter, stats, cap, spill)
+        want_rows = rpd * len(mesh.positions)
+        chunks = self._chunks(source, want_rows, stats, metrics, resumed.reads_absorbed if resumed else 0,
+                              (resumed.files or None) if resumed else None)
+
+        def next_rows():
+            item = next(chunks, None)
+            if item is None:
+                return None, None
+            chunk, reads, _ = item
+            if reads.shape[1] < line_length:
+                reads = np.pad(reads, ((0, 0), (0, line_length - reads.shape[1])))
+            return chunk, reads
+
+        def maybe_consolidate():
+            # An explicit consolidation boundary (the counter would
+            # otherwise consolidate inside step()), so that the engine can
+            # spill and snapshot there.  Every trigger is host-mirrored, so
+            # every process reaches the same decision.
+            if not counter.pending_consolidation():
+                return
+            with metrics.timer("consolidate"):
+                counter.consolidate(cap, spill)
+            stats.consolidations += 1
+            if self._checkpoint_due(stats):
+                with metrics.timer("checkpoint"):
+                    self._save_mesh_checkpoint(counter, stats)
+
+        with _start_monitor(opts, stats, lambda: f"occupied/position={counter.occupied_bound()}"):
+            empty = np.zeros((want_rows, line_length), np.uint8)
+            drained = False
+            while True:
+                chunk, reads = (None, None) if drained else next_rows()
+                drained = chunk is None
+                # Lockstep: go on while any process still has data.
+                if (drained if not multi else not global_any(mesh, not drained)):
+                    break
+                maybe_consolidate()
+                with metrics.timer("dispatch"):
+                    counter.step(reads if reads is not None else empty)
+                if chunk is not None:
+                    stats.chunks += 1
+                    _absorb(stats, chunk)
+
+        # The all-T side count (two-level, k % 16 == 0, forward): T^k is
+        # the largest key, so its record is the last of the last range.
+        allt = counter.allt_total() & MASK
+        allt_lanes = np.full((1, NL), 0xFFFFFFFF, np.uint32)
+        allt_counts = np.asarray([allt], np.uint32)
+        with metrics.timer("consolidate"):
+            counter.close(cap, spill)
+        if not multi and self._scheduler is None and cap is not None and counter.route_rounds(cap) > 1:
+            # The frozen splitters crowd one range past what a position may
+            # receive: merge the positions' tables on the host instead.
+            self._scheduler = self._merge_scheduler()
+        if self._scheduler is not None:
+            self._finish_spilled(counter, stats, metrics, allt, allt_lanes, allt_counts)
+        elif multi:
+            self._finish_parts(counter, stats, metrics, allt, allt_lanes, allt_counts)
+        else:
+            with metrics.timer("route"):
+                lanes, counts = counter.finalize()
+            if allt:
+                if lanes.shape[0] and np.array_equal(lanes[-1], allt_lanes[0]):
+                    raise RuntimeError("all-T key present in the key stream despite the side counter: "
+                                       "extract_chunk_keys contract violated")
+                lanes, counts = np.concatenate([lanes, allt_lanes]), np.concatenate([counts, allt_counts])
+            stats.distinct_kmers = len(counts)
+            stats.total_kmers = int(counts.sum(dtype=np.uint64))
+            dump_table(opts.output_file, lanes, counts)
+        self.route_balance = None if counter.balance is None else counter.balance.tolist()
+        self.route_rounds = counter.most_rounds
+        stats.wall_seconds = time.perf_counter() - t_start
+        stats.ingest_seconds = metrics.timers.get("ingest", 0.0)
+        for name, value in (("reads", stats.reads), ("chunks", stats.chunks),
+                            ("distinct_kmers", stats.distinct_kmers),
+                            ("position_consolidations", counter.position_consolidations)):
+            metrics.count(name, value)
+        stats.metrics = metrics.snapshot()
+        if opts.verbose:
+            print(f"[metrics] {metrics.report()}")
+            print(f"[engine] reads={stats.reads} distinct={stats.distinct_kmers} total={stats.total_kmers} "
+                  f"wall={stats.wall_seconds:.2f}s ({stats.kmers_per_second/1e6:.2f}M kmers/s over {D} positions)")
+        return stats
+
+    def _finish_spilled(self, counter, stats, metrics, allt, allt_lanes, allt_counts):
+        """One process that spilled: the positions' tables join the runs and
+        the host merge writes the sorted output; the all-T record last."""
+        from kmer_counter_tpu_torch.io import spill as spill_io
+
+        opts = self.opts
+        for lanes, counts in counter.local_tables():
+            stats.spilled_runs += 1
+            path = os.path.join(opts.temp_dir, f"spill_{stats.spilled_runs:06d}.run")
+            self._scheduler.add_run(spill_io.write_run(path, lanes, counts))
+        with metrics.timer("merge"):
+            written = self._scheduler.finish(opts.output_file)
+        self._scheduler = None
+        if allt:
+            written += dump_table(opts.output_file, allt_lanes, allt_counts, append=True)
+        stats.distinct_kmers = written
+        _, counts_all = load_table(opts.output_file, opts.kmer_length)
+        stats.total_kmers = int(counts_all.sum(dtype=np.uint64))
+
+    def _finish_parts(self, counter, stats, metrics, allt, allt_lanes, allt_counts):
+        """Several processes: each writes the ranges of its positions as
+        part files (a range with spill runs, or that the route gave in
+        rounds, is the host merge of its runs and its final pieces) and a
+        manifest; the parts in name order are the globally sorted table."""
+        import json
+
+        from kmer_counter_tpu_torch.io import spill as spill_io
+
+        opts, mesh = self.opts, self.mesh
+        with metrics.timer("route"):
+            pieces = {}
+            for pos, lanes, counts in counter.finalize_local(self._route_cap):
+                pieces.setdefault(pos, []).append((lanes, counts))
+        written = total = 0
+        for pos in mesh.positions:
+            part = f"{opts.output_file}.part{pos:05d}"
+            runs = (self._pos_runs or {}).get(pos, [])
+            if runs or len(pieces[pos]) > 1:
+                finals = []
+                for q, (lanes, counts) in enumerate(pieces[pos]):
+                    finals.append(spill_io.write_run(os.path.join(opts.temp_dir, f"final_pos{pos:05d}_{q:03d}.run"),
+                                                     lanes, counts))
+                with metrics.timer("merge"):
+                    n = spill_io.merge_runs(runs + finals, part, opts.kmer_length)
+                for p in runs + finals:
+                    try:
+                        os.remove(p)
+                    except OSError:
+                        pass
+                total += int(load_table(part, opts.kmer_length)[1].sum(dtype=np.uint64))
+            else:
+                (lanes, counts), = pieces[pos]
+                n = dump_table(part, lanes, counts)
+                total += int(counts.sum(dtype=np.uint64))
+            if allt and pos == mesh.size - 1:
+                n += dump_table(part, allt_lanes, allt_counts, append=True)
+                total += allt
+            written += n
+        with open(f"{opts.output_file}.manifest.{mesh.rank}.json", "w") as fh:
+            json.dump({"process": mesh.rank, "processes": mesh.world, "records": written,
+                       "assembly": "cat output.part* (name order) -> sorted table"}, fh)
+        stats.distinct_kmers = written
+        stats.total_kmers = total
+
+
+def _mesh_wanted(opts: Options, device: torch.device) -> bool:
+    """The JAX dispatch: the mesh engine for ``meshShape``, more than one
+    visible card, or more than one rank."""
+    cards = torch.cuda.device_count() if device.type == "cuda" and torch.cuda.is_available() else 1
+    return opts.mesh_shape is not None or cards > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1
+
+
+def run_count(opts: Options, device: torch.device | None = None, mesh=None) -> RunStats:
+    """Run the count on ``device`` (default: cuda): the mesh engine when
+    ``mesh`` is given or ``_mesh_wanted``, the single-device engine
+    otherwise.
 
     With ``profile=true`` the run is traced by torch.profiler, the trace
     written next to the output file (``<outputFile>.trace/trace.json``).
     """
-    engine = CountEngine(opts, device)
+    device = torch.device("cuda") if device is None else torch.device(device)
+    if mesh is not None or _mesh_wanted(opts, device):
+        engine = MeshCountEngine(opts, device, mesh)
+    else:
+        engine = CountEngine(opts, device)
     trace_dir = opts.output_file + ".trace" if opts.profile else None
     with device_trace(trace_dir, engine.device):
         return engine.run()

@@ -224,3 +224,104 @@ def test_checkpoint_files_byte_identical(tmp_path, rng, spilled):
         else:
             assert a == b
     assert (got.reads_absorbed, got.allt, bool(got.spill_runs)) == (1234, 7, spilled)
+
+
+@pytest.mark.parametrize("layout", ["one_process", "rank_1_of_2"])
+def test_mesh_checkpoint_files_byte_identical(tmp_path, rng, layout):
+    """mesh_save writes the JAX package's files for the same items (the
+    port takes rank and process count as arguments where JAX asks jax),
+    and each package's mesh_load reads the other's epoch back; pruning
+    keeps the same epochs."""
+    k = 31
+    proc, nproc = (0, 1) if layout == "one_process" else (1, 2)
+    positions = [4 * proc + i for i in range(4)]
+    items = []
+    for pos in positions:
+        lanes, counts = _table(rng, k, n=10 + pos)
+        items.append((pos, records.pad_lanes_to_abi(lanes, k), counts, pos % 3))
+    runs = {positions[0]: [spill.write_run(str(tmp_path / f"spill_pos{positions[0]:05d}_000001.run"),
+                                           *_table(rng, k))]}
+    opts = config.Options(kmer_length=k, canonical=True, input_dir=str(tmp_path / "in"))
+    splitters = np.array([5, 9, 0x80000000, 0xF0000000, 0xF0000001, 0xFFFFFFF0, 0xFFFFFFFF], np.uint32)
+    jax_proc = pytest.MonkeyPatch()
+    import jax
+
+    jax_proc.setattr(jax, "process_index", lambda: proc)
+    jax_proc.setattr(jax, "process_count", lambda: nproc)
+    try:
+        for epoch in (1, 2, 3, 4):
+            for name in ("port", "jax"):
+                kw = dict(mesh_size=8, splitters=splitters, pos_runs=runs if epoch > 2 else None)
+                if name == "port":
+                    checkpoint.mesh_save(str(tmp_path / name), opts, epoch, items, 100 * epoch,
+                                         {"a.fastq": 100 * epoch}, process=proc, processes=nproc, **kw)
+                else:
+                    jax_checkpoint.mesh_save(str(tmp_path / name), opts, epoch, items, 100 * epoch,
+                                             {"a.fastq": 100 * epoch}, **kw)
+        port_files, jax_files = sorted(os.listdir(tmp_path / "port")), sorted(os.listdir(tmp_path / "jax"))
+        assert port_files == jax_files and any(f.startswith("mesh.e000004.pos") for f in port_files)
+        assert not any(f.startswith("mesh.e000001") for f in port_files)  # pruned
+        for f in port_files:
+            assert (tmp_path / "port" / f).read_bytes() == (tmp_path / "jax" / f).read_bytes(), f
+        if nproc == 2:  # the other process's manifest completes the epoch for mesh_load
+            other = jax_checkpoint.MESH_MANIFEST.format(epoch=4, proc=0)
+            for name in ("port", "jax"):
+                manifest = (tmp_path / name / jax_checkpoint.MESH_MANIFEST.format(epoch=4, proc=1)).read_text()
+                (tmp_path / name / other).write_text(manifest.replace('"process": 1', '"process": 0'))
+        got = checkpoint.mesh_load(str(tmp_path / "jax"), opts, 8, positions, process=proc, processes=nproc)
+        want = jax_checkpoint.mesh_load(str(tmp_path / "port"), opts, 8, positions)
+    finally:
+        jax_proc.undo()
+    assert got.epoch == want.epoch == 4 and got.reads_absorbed == want.reads_absorbed == 400
+    assert (got.splitters, got.pos_runs, got.scheduler_runs, got.files) == (
+        want.splitters, want.pos_runs, want.scheduler_runs, want.files)
+    for (gp, gl, gc, ga), (wp, wl, wc, wa) in zip(got.items, want.items):
+        assert (gp, ga) == (wp, wa)
+        np.testing.assert_array_equal(gl, wl)
+        np.testing.assert_array_equal(gc, wc)
+    assert checkpoint.mesh_config_fingerprint(opts, 8, nproc) == jax_checkpoint.mesh_config_fingerprint(
+        opts, 8, nproc)
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+@pytest.mark.parametrize("impl", ["two", "one"])
+def test_each_package_resumes_the_others_mesh_snapshot(tmp_path, rng, monkeypatch, writer, impl):
+    """A mesh run of one package (8 positions) dies after a snapshot; the
+    other package's mesh engine resumes it to golden."""
+    import torch
+
+    from kmer_counter_tpu.engine import MeshCountEngine as JaxMeshEngine
+    from kmer_counter_tpu.parallel import pipeline as jax_pipeline
+    from kmer_counter_tpu_torch.engine import MeshCountEngine
+    from kmer_counter_tpu_torch.parallel import pipeline
+    from kmer_counter_tpu_torch.parallel.mesh import make_mesh
+
+    from tests.test_torch_engine import golden_bytes
+
+    (tmp_path / "in").mkdir()
+    write_fastq(tmp_path / "in" / "a.fastq", random_seqs(rng, 256, 60))
+    mesh = make_mesh(devices=[torch.device("cpu")] * 8)
+    kw = dict(kmer_length=31, canonical=True, input_dir=str(tmp_path / "in"), output_file=str(tmp_path / "o.bin"),
+              reads_per_chunk=32, table_slots=3000, checkpoint_dir=str(tmp_path / "ck"), checkpoint_every=1,
+              table_impl=impl, verbose=0)
+    engines = {"port": lambda: MeshCountEngine(config.Options(**kw), mesh=mesh),
+               "jax": lambda: JaxMeshEngine(jax_config.Options(mesh_shape=(8,), **kw))}
+    with monkeypatch.context() as mp:
+        module = pipeline if writer == "port" else jax_pipeline
+        for cls in (module.ShardedCounter, module.ShardedCounter2):
+            real, done = cls.step, [0]
+
+            def step(self, reads, _real=real, _done=done):
+                if _done[0] >= 6:
+                    raise RuntimeError("simulated crash")
+                _done[0] += 1
+                return _real(self, reads)
+
+            mp.setattr(cls, "step", step)
+        with pytest.raises(RuntimeError, match="simulated crash"):
+            engines[writer]().run()
+    loaded = (checkpoint if writer == "jax" else jax_checkpoint).mesh_load
+    assert loaded(str(tmp_path / "ck"), config.Options(**kw), 8, list(range(8))) is not None
+    stats = engines["jax" if writer == "port" else "port"]().run()
+    assert 0 < stats.chunks < 8
+    assert (tmp_path / "o.bin").read_bytes() == golden_bytes(tmp_path, 31, True)

@@ -814,3 +814,125 @@ def test_one_level_cli_on_cuda_matches_golden(cuda, tmp_path, k, canonical):
     assert rc == 0
     assert ls.launches >= before + 2  # a consolidation in the loop, and the finalize
     assert out.read_bytes() == golden.serialize_counter(golden.count_reads(reads, k, canonical))
+
+
+# ---- the mesh: the route's sort and a 4-position count on one card --------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("NL", [1, 2, 4])
+def test_route_on_cuda_matches_plain(cuda, NL):
+    """parallel.shuffle.route_merge_local over 4 positions on the card (each
+    non-empty range's sort_reduce through the sort kernel) against the same
+    route on the CPU (the plain sort): the same ranges, bit for bit."""
+    from kmer_counter_tpu_torch.ops import lane_sort as ls
+    from kmer_counter_tpu_torch.ops.u32 import from_numpy
+    from kmer_counter_tpu_torch.parallel import shuffle
+    from kmer_counter_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(NL)
+    tables = []
+    for u in (50_000, 0, 123_457, 7):
+        keys = np.unique(rng.integers(0, 2**32, (u, NL), dtype=np.uint64).astype(np.uint32) >> 2, axis=0)
+        tables.append((np.ascontiguousarray(keys.T), rng.integers(1, 9, len(keys)).astype(np.uint32)))
+    outs = {}
+    for name, device in (("cuda", torch.device("cuda")), ("cpu", torch.device("cpu"))):
+        mesh = make_mesh(devices=[device] * 4)
+        on = [(from_numpy(lanes, device), from_numpy(counts, device)) for lanes, counts in tables]
+        splitters = shuffle.sampled_splitters_host(mesh, [lanes[0] for lanes, _ in on])
+        before = ls.launches
+        plan = shuffle.plan_route(mesh, on, splitters)
+        routed = [(pos, lanes.cpu(), counts.cpu()) for pos, lanes, counts in shuffle.route_merge_local(mesh, on, plan)]
+        # One sort a position that received rows (the empty position's
+        # samples, all-ones, leave the last range empty here).
+        assert plan.rounds == 1
+        assert ls.launches - before == (sum(1 for n in plan.balance if n) if name == "cuda" else 0)
+        outs[name] = routed, plan.balance
+    for (cpos, cl, cc), (ppos, pl, pc) in zip(outs["cuda"][0], outs["cpu"][0]):
+        assert cpos == ppos
+        assert torch.equal(cl, pl) and torch.equal(cc, pc)
+    assert (outs["cuda"][1] == outs["cpu"][1]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["two", "one"])
+def test_mesh_count_on_cuda_matches_golden(cuda, tmp_path, impl):
+    """A 4-position mesh on one card: each position's consolidations
+    launch K1 (two-level) or the sort (one-level), the route launches the
+    sort once a position; the dump is golden's."""
+    from kmer_counter_tpu import golden
+    from kmer_counter_tpu.utils import seqgen
+    from kmer_counter_tpu_torch.config import Options
+    from kmer_counter_tpu_torch.engine import run_count
+    from kmer_counter_tpu_torch.ops import lane_sort as ls
+    from kmer_counter_tpu_torch.ops import merge_fold_compact as mfc
+    from kmer_counter_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(31)
+    reads = seqgen.sample_reads(rng, seqgen.random_genome(rng, 50_000), 3_000, 120, 0.01)
+    seqgen.write_fastq_file(os.path.join(tmp_path, "in", "a.fastq"), reads[:2000])
+    seqgen.write_fastq_file(os.path.join(tmp_path, "in", "b.fastq"), reads[2000:])
+    out = tmp_path / "out.bin"
+    opts = Options(kmer_length=31, canonical=True, table_impl=impl, input_dir=str(tmp_path / "in"),
+                   output_file=str(out), table_slots=60_000, reads_per_chunk=400, verbose=0)
+    k1, sort = mfc.launches, ls.launches
+    stats = run_count(opts, mesh=make_mesh(devices=[torch.device("cuda")] * 4))
+    k1, sort = mfc.launches - k1, ls.launches - sort
+    per_position = stats.metrics["counters"]["position_consolidations"]
+    if impl == "two":
+        assert k1 == per_position >= 8 and sort == 4
+    else:
+        assert k1 == 0 and sort == per_position + 4 and per_position >= 8
+    assert out.read_bytes() == golden.serialize_counter(golden.count_reads(reads, 31, True))
+
+
+@pytest.mark.gpu
+def test_two_ranks_spill_route_in_rounds_on_cuda(cuda, tmp_path):
+    """Two gloo ranks sharing the card (tests/torch_multiproc_worker.py),
+    2 positions each, spilling, with each table: the splitters freeze at
+    the first spill over uniform reads, the poly-A reads after it crowd the
+    lowest range, which arrives in rounds (gloo's all-to-all of CUDA
+    tensors, a run per round); the parts in name order are golden's."""
+    import re
+    import subprocess
+    import sys
+
+    from kmer_counter_tpu import golden
+    from kmer_counter_tpu.utils import seqgen
+
+    rng = np.random.default_rng(11)
+    reads = []
+    for i in range(2):  # rank i reads f{i}, then f{i+2}
+        uniform = seqgen.sample_reads(rng, seqgen.random_genome(rng, 20_000), 128, 60)
+        poly = seqgen.sample_reads(rng, seqgen.random_genome(rng, 20_000), 128, 60)
+        poly[:, :30] = ord("A")
+        seqgen.write_fastq_file(os.path.join(tmp_path, "in", f"f{i}.fastq"), uniform)
+        seqgen.write_fastq_file(os.path.join(tmp_path, "in", f"f{i + 2}.fastq"), poly)
+        reads += [uniform, poly]
+    want = golden.serialize_counter(golden.count_reads(np.concatenate(reads), 31, True))
+    worker = os.path.join(os.path.dirname(__file__), "torch_multiproc_worker.py")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    jobs = []
+    for impl in ("two", "one"):
+        jobs += ["--"] * bool(jobs) + [str(tmp_path / "in"), str(tmp_path / impl / "out.bin"), impl, "31", "4000",
+                                       str(tmp_path / f"spill_{impl}")]
+        (tmp_path / impl).mkdir()
+    env = {**os.environ, "PYTHONPATH": repo, "KMER_TEST_DEVICE": "cuda", "KMER_TEST_POSITIONS": "2"}
+    procs = [subprocess.Popen([sys.executable, worker, str(rank), "2", str(tmp_path / "store"), *jobs], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    assert [p.returncode for p in procs] == [0, 0], logs
+    for impl in ("two", "one"):
+        lines = [line for log in logs for line in log.splitlines() if f"{os.sep}{impl}{os.sep}out.bin " in line]
+        assert len(lines) == 2 and all(int(re.search(r"rounds=(\d+)", line).group(1)) > 1 for line in lines), logs
+        parts = sorted(f for f in os.listdir(tmp_path / impl) if ".part" in f)
+        assert len(parts) == 4
+        assert b"".join((tmp_path / impl / f).read_bytes() for f in parts) == want, impl

@@ -42,6 +42,10 @@ PORT_MODULES = [
     "kmer_counter_tpu_torch.ops.table",
     "kmer_counter_tpu_torch.ops.table2",
     "kmer_counter_tpu_torch.ops.u32",
+    "kmer_counter_tpu_torch.parallel",
+    "kmer_counter_tpu_torch.parallel.mesh",
+    "kmer_counter_tpu_torch.parallel.pipeline",
+    "kmer_counter_tpu_torch.parallel.shuffle",
     "kmer_counter_tpu_torch.records",
 ]
 
@@ -120,25 +124,34 @@ def test_cli_count_fails_without_gpu(tmp_path):
     ids=["kw0-mesh", "kw1-checkpoint", "kw2-profile"],
 )
 def test_unported_options_raise(tmp_path, kw, what):
-    """The mesh engine still raises; checkpointDir and profile=true are
-    ported and no longer do."""
-    from kmer_counter_tpu_torch.engine import CountEngine
+    """Nothing the JAX package has raises any more: checkpointDir and
+    profile=true build the engine, and meshShape makes run_count take the
+    mesh engine (a one-position mesh on the CPU, as meshShape=2 on one
+    card)."""
+    from kmer_counter_tpu_torch import engine
 
     opts = Options(kmer_length=15, input_dir=str(tmp_path), output_file=str(tmp_path / "o"), **kw)
-    if what is None:
-        assert CountEngine(opts, device=torch.device("cpu")).opts is opts
-        return
-    with pytest.raises(NotImplementedError, match=what):
-        CountEngine(opts, device=torch.device("cpu"))
+    cpu = torch.device("cpu")
+    assert engine._mesh_wanted(opts, cpu) == (what == "mesh")
+    built = (engine.MeshCountEngine if what else engine.CountEngine)(opts, device=cpu)
+    assert built.opts is opts
+    if what:
+        assert built.mesh.size == 1 and built.mesh.world == 1
 
 
 def test_several_ranks_raise(tmp_path, monkeypatch):
-    from kmer_counter_tpu_torch.engine import CountEngine
+    """WORLD_SIZE > 1 takes the mesh engine, which joins torchrun's process
+    group: without a rendezvous address that raises, rather than counting
+    one rank's files alone."""
+    from kmer_counter_tpu_torch import engine
 
     monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
     opts = Options(kmer_length=15, input_dir=str(tmp_path), output_file=str(tmp_path / "o"))
-    with pytest.raises(NotImplementedError, match="several ranks"):
-        CountEngine(opts, device=torch.device("cpu"))
+    assert engine._mesh_wanted(opts, torch.device("cpu"))
+    with pytest.raises(ValueError, match="MASTER_ADDR"):
+        engine.run_count(opts, torch.device("cpu"))
 
 
 def test_kernel_wrapper_has_no_fallback_for_other_devices():
