@@ -9,15 +9,19 @@ and prints no result):
 
   1. device   — card name and power limit (nvidia-smi), torch / CUDA versions
   2. build    — nvcc builds every kernel of the main paths from csrc/, one
-                process per source, all started together
+                process per source, all started together (four sources)
   3. main     — the CLI (kmer_counter_tpu_torch.__main__.main) counts 2M
                 reads x 100 bp sampled from a 4.6-Mbase genome at k=31
                 canonical, gpuMemoryLimit=8e9, with the two-level table;
-                the launch counts of K1 (merge_fold_compact) and of the sort
-                (lane_sort, at finalize) in that run and their launch
-                shapes (for K1 and the merges also the live rows of A and B
-                and B's live rows with the sentinel key, for K1 and K2 the
-                output width, the prefix's CP columns); the dump is
+                the launch counts of K1 (merge_fold_compact), of the sort
+                (lane_sort, at finalize) and of K8 (fused_extract, the
+                chunk step: once a chunk on every path, once a position a
+                chunk on the mesh paths, from the run's own chunk count) in
+                that run and their launch shapes (for K1 and the merges
+                also the live rows of A and B and B's live rows with the
+                sentinel key, for K1 and K2 the output width, the prefix's
+                CP columns; for K8 R, L, k, canonical and its mode, keys
+                or records); the dump is
                 byte-identical to an independent NumPy count; the run's
                 peak device memory is at most gpuMemoryLimit (so in every
                 main path)
@@ -60,8 +64,13 @@ and prints no result):
                 in a table with room for a chunk; its peak device memory is
                 at most 2e9 and its dump byte-identical to the NumPy count
   8. kernel   — each kernel against its plain torch version on the card:
-                K1, K2, K3 and K4 bit-exact, and the sort and K5 with
-                bit-exact keys and the same payloads under each key, at
+                K1, K2, K3, K4 and K8 bit-exact (K8 in both modes at k =
+                1..128 x canonical x four read lengths, on reads longer
+                than its tile, and at the edge cases of
+                tests/test_torch_cuda.py: lower case, N, zero-padded rows,
+                all-T reads, a write at a raw_off into a wider region,
+                R = 1, R one past the tile, misaligned reads), and the
+                sort and K5 with bit-exact keys and the same payloads under each key, at
                 NL = 1, 2, 4, 7 and about 8M rows (K1, K3 and the sort also
                 32M), at the edge cases of tests/test_torch_cuda.py (the
                 merges also at the K1/K3 kernel's tile, the sort's also on
@@ -90,7 +99,8 @@ and prints no result):
                 each dump byte-identical to the NumPy count
  11. profile  — a small two-level CLI run with profile=true: its
                 torch.profiler trace (<outputFile>.trace/trace.json) names
-                fold_kernel and leaf_kernel; the dump equals the NumPy count
+                fold_kernel, leaf_kernel and extract_kernel; the dump
+                equals the NumPy count
  12. mesh     — (after phase 5) the main count through engine.run_count on a
                 mesh of 4 positions that share the card, with each table
                 ("mesh", "mesh_one"): the dump byte-identical to phase 3's
@@ -134,13 +144,15 @@ untraced runs of the main count (wall, engine timers, peak device memory
 of each), one that takes the peak device memory of each table stage, and
 one under torch.profiler: the device's busy share of that run, its
 device time per kernel and copy, largest first, the sort's two kernels
-(leaf and merge pass) apart, with the sort's share of the busy time, and
-K1's two kernels (merge pass and fill) with their launches.
+(leaf and merge pass) apart, with the sort's share of the busy time,
+K1's two kernels (merge pass and fill) with their launches, and K8's
+kernel (the chunk step) with its launches.
 
 The reads, the FASTQ files and the reference counts are made here with
 NumPy; nothing of the JAX package is imported.
 """
 
+import functools
 import json
 import os
 from collections import Counter
@@ -185,6 +197,11 @@ MERGES = {
     "merge_sorted_runs": dict(name="merge_sorted_runs", route="cuda", source=MFC_CU,
                               replaces=f"{PALLAS}:1804", cuda_kernels="splits_kernel + write_kernel"),
 }
+# K8: the chunk step's fused encode + extract, a Pallas kernel under docs/.
+K8 = dict(name="fused_extract", route="cuda", source="kmer_counter_tpu_torch/csrc/fused_extract.cu",
+          replaces="docs/experiments_pallas_extract.py:132", cuda_kernels="extract_kernel")
+K8_KERNEL_NAME = "extract_kernel<"
+KERNEL_NAMES = (K1["name"], SORT["name"], K2["name"], *MERGES, K8["name"])
 MAIN_K, MAIN_L, MAIN_READS, MAIN_FILES, MAIN_GENOME = 31, 100, 2_000_000, 4, 4_600_000
 MEMORY_LIMIT = 8_000_000_000
 # The spill and resume phases: 2M reads x 100 bp from a 200-Mbase genome (about
@@ -236,12 +253,14 @@ def smi_line() -> str:
 # ---- reads, FASTQ and the independent count (NumPy) -------------------------
 
 
-def sample_reads(rng, genome_len, n_reads, read_len, invalid_frac):
+def sample_reads(rng, genome_len, n_reads, read_len, invalid_frac, genome=None):
     """[n_reads, read_len] uint8 ASCII reads sampled uniformly from a random
-    ACGT genome, a fraction of bases replaced by 'N'."""
+    ACGT genome (or ``genome``, of genome_len bases), a fraction of bases
+    replaced by 'N'."""
     import numpy as np
 
-    genome = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=genome_len)
+    if genome is None:
+        genome = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=genome_len)
     starts = rng.integers(0, genome_len - read_len + 1, size=n_reads)
     reads = genome[starts[:, None] + np.arange(read_len)]
     reads[rng.random(reads.shape) < invalid_frac] = ord("N")
@@ -1058,22 +1077,25 @@ class LaunchShapes:
     """Records the shape of each call of the kernel wrappers on the table
     paths: (NL, na, nb, A's live rows, B's live rows, B's live rows with
     the sentinel key) for the merges, the same and the output width for K1,
-    (NL, n) for the sort, (NL, n, "route") inside a mesh route, and
-    (n_ops, n, live rows, output width) for K2;
-    the kernel phase compares and times the kernels at those shapes.
+    (NL, n) for the sort, (NL, n, "route") inside a mesh route,
+    (n_ops, n, live rows, output width) for K2, and (R, L, k, canonical,
+    "keys" or "records") for K8; the kernel phase compares and times the
+    kernels at those shapes.
     ``variant``: consolidate3's keywords, bound to table2.consolidate3 while
     the context is open."""
 
     def __init__(self, variant=None):
         import functools
 
-        from kmer_counter_tpu_torch.ops import lane_sort, table2
+        from kmer_counter_tpu_torch.ops import fused_extract, lane_sort, table2
 
-        self._table2, self._lane_sort = table2, lane_sort
-        self.shapes = {name: [] for name in (K1["name"], SORT["name"], K2["name"], *MERGES)}
+        self._table2, self._lane_sort, self._fx = table2, lane_sort, fused_extract
+        self.shapes = {name: [] for name in KERNEL_NAMES}
         self._patches = [(table2, "merge_fold_compact", self._merge("merge_fold_compact")),
                          (lane_sort, "sort_ops", self._sort),
-                         (table2, "compact_live", self._k2)]
+                         (table2, "compact_live", self._k2),
+                         (fused_extract, "extract_chunk_lanes_major", self._k8_records),
+                         (fused_extract, "extract_chunk_keys_into", self._k8_keys)]
         self._patches += [(table2, name, self._merge(name)) for name in MERGES]
         if variant:
             self._patches.append((table2, "consolidate3", functools.partial(table2.consolidate3, **variant)))
@@ -1107,6 +1129,14 @@ class LaunchShapes:
         self.shapes[K2["name"]].append((len(operands), live.numel(), live_rows, out_rows))
         return self._reals[(self._table2, "compact_live")](operands, live, num_keys, out_rows)
 
+    def _k8_records(self, reads, k, canonical=False):
+        self.shapes[K8["name"]].append((*reads.shape, k, bool(canonical), "records"))
+        return self._reals[(self._fx, "extract_chunk_lanes_major")](reads, k, canonical)
+
+    def _k8_keys(self, reads, k, canonical, dst, off, allt):
+        self.shapes[K8["name"]].append((*reads.shape, k, bool(canonical), "keys"))
+        return self._reals[(self._fx, "extract_chunk_keys_into")](reads, k, canonical, dst, off, allt)
+
     def __enter__(self):
         for module, name, fn in self._patches:
             setattr(module, name, fn)
@@ -1120,21 +1150,23 @@ class LaunchShapes:
 def launch_counts():
     """Every kernel wrapper's launch count, by kernel name."""
     from kmer_counter_tpu_torch.ops import compact_live as cl
+    from kmer_counter_tpu_torch.ops import fused_extract as fx
     from kmer_counter_tpu_torch.ops import lane_sort as ls
     from kmer_counter_tpu_torch.ops import merge_fold_compact as mfc
     from kmer_counter_tpu_torch.ops import merge_runs as mr
 
     return {K1["name"]: mfc.launches, SORT["name"]: ls.launches, K2["name"]: cl.launches,
-            **{name: mr.launches[name] for name in MERGES}}
+            **{name: mr.launches[name] for name in MERGES}, K8["name"]: fx.launches}
 
 
 def reset_launch_counts():
     from kmer_counter_tpu_torch.ops import compact_live as cl
+    from kmer_counter_tpu_torch.ops import fused_extract as fx
     from kmer_counter_tpu_torch.ops import lane_sort as ls
     from kmer_counter_tpu_torch.ops import merge_fold_compact as mfc
     from kmer_counter_tpu_torch.ops import merge_runs as mr
 
-    mfc.launches = ls.launches = cl.launches = 0
+    mfc.launches = ls.launches = cl.launches = fx.launches = 0
     for name in mr.launches:
         mr.launches[name] = 0
 
@@ -1182,6 +1214,13 @@ def check_launches(path, launches, need):
                                  f"(want >= {least}{'' if most is None else f' and <= {most}'})")
 
 
+def check_k8_launches(path, launches, chunks, positions=1):
+    """K8, the chunk step, once for each chunk on each position."""
+    if chunks < 1 or launches[K8["name"]] != chunks * positions:
+        raise AssertionError(f"{path}: {K8['name']} launched {launches[K8['name']]} times (want {chunks} chunks x "
+                             f"{positions} positions)")
+
+
 def check_dump(path, want: bytes, what: str):
     with open(path, "rb") as fh:
         if fh.read() != want:
@@ -1210,8 +1249,9 @@ def phase_main(device, tmp, cases):
         plan.append((f"main_{variant}", "main_variants", "two", variant, need))
     for path, phase, impl, variant, need in plan:
         kw = cases.CONSOLIDATE_VARIANTS[variant] if variant else None
-        wall, peak, launches, shapes, _ = run_main_path(device, argv, impl, kw)
+        wall, peak, launches, shapes, stats = run_main_path(device, argv, impl, kw)
         check_launches(path, launches, need)
+        check_k8_launches(path, launches, stats.chunks)
         t0 = time.perf_counter()
         if want is None:
             words, counts = numpy_count(reads, MAIN_K, canonical=True)
@@ -1341,6 +1381,7 @@ def phase_spill(device, tmp):
         with SpillRecorder() as rec:
             wall, peak, launches, shapes, stats = run_main_path(device, argv(path), impl)
         check_launches(path, launches, need)
+        check_k8_launches(path, launches, stats.chunks)
         check_dump(out, want, path)
         log({**entry("spill", impl, wall, peak, launches, shapes, stats, rec), "path": path,
              "mid_run_spills": stats.spilled_runs - 1})
@@ -1409,6 +1450,7 @@ def phase_spill(device, tmp):
         finally:
             engine._absorb = real_absorb
         check_launches(path, launches, need)
+        check_k8_launches(path, launches, stats.chunks)
         check_dump(out, want, path)
         listed = sorted(os.path.basename(p) for p in manifest.get("spill_runs", []))
         merged = {name for m in rec.merges for name in m["inputs"]}
@@ -1454,7 +1496,9 @@ class RouteProbe:
     memory allocated when each route starts, the peak inside it, its
     seconds and the rows each position received.  The peak statistics are
     reset at each route, so the run's peak is the larger of the peaks read
-    there and the peak at the end (run_peak)."""
+    there and the peak at the end (run_peak).  It also counts the sharded
+    counters' steps (``steps``: each is one chunk step on every position
+    of this process)."""
 
     active = False  # inside a route (LaunchShapes marks the sort's shapes there)
 
@@ -1463,6 +1507,15 @@ class RouteProbe:
 
         self.device, self._pipeline, self._real = device, pipeline, pipeline.route_merge_local
         self.routes, self._peak_before = [], 0
+        self.steps = 0
+        self._counters = {cls: cls.step for cls in (pipeline.ShardedCounter, pipeline.ShardedCounter2)}
+
+    def _step(self, real):
+        def step(counter, reads):
+            self.steps += 1
+            return real(counter, reads)
+
+        return step
 
     def _route(self, mesh, tables, plan):
         import torch
@@ -1515,10 +1568,14 @@ class RouteProbe:
 
     def __enter__(self):
         self._pipeline.route_merge_local = self._route
+        for cls, real in self._counters.items():
+            cls.step = self._step(real)
         return self
 
     def __exit__(self, *exc):
         self._pipeline.route_merge_local = self._real
+        for cls, real in self._counters.items():
+            cls.step = real
 
 
 def run_mesh_path(device, argv, mesh):
@@ -1545,10 +1602,15 @@ def run_mesh_path(device, argv, mesh):
     return wall, peak, launches, shapes, stats, probe
 
 
-def check_mesh_launches(path, impl, launches, position_consolidations, route_launches, positions):
+def check_mesh_launches(path, impl, launches, position_consolidations, route_launches, positions, chunks, steps):
     """K1 once for each consolidation of each position (two-level), the
     sort once for each (one-level) and once for each position a route
-    gave rows to."""
+    gave rows to; K8 once for each chunk on each position (the ranks of
+    mesh_mp read shards of equal size, so no rank steps on after its
+    input ends: one step a chunk)."""
+    if steps != chunks:
+        raise AssertionError(f"{path}: {steps} steps of the sharded counter for {chunks} chunks")
+    check_k8_launches(path, launches, chunks, positions)
     pc = position_consolidations
     if pc < positions:
         raise AssertionError(f"{path}: {pc} position consolidations (want >= {positions})")
@@ -1575,7 +1637,8 @@ def phase_mesh(device, tmp, main_ctx):
             device, argv + [f"tableImpl={impl}", "verbose=0"], mesh)
         check_dump(out, want, path)
         pc = stats.metrics["counters"]["position_consolidations"]
-        check_mesh_launches(path, impl, launches, pc, probe.route_launches(), MESH_POSITIONS)
+        check_mesh_launches(path, impl, launches, pc, probe.route_launches(), MESH_POSITIONS, stats.chunks,
+                            probe.steps)
         log({"phase": "mesh", "path": path, "positions": MESH_POSITIONS, "position_devices": str(device),
              "cmd": "engine.run_count(Options.from_argv([" + " ".join(argv[:3]) + f" tableImpl={impl}]), "
              f"mesh=make_mesh(devices=[cuda]*{MESH_POSITIONS}))", "wall_s": wall, "kmers_per_s": total / wall,
@@ -1597,7 +1660,7 @@ class WorkerShapes:
     """The launch shapes a mesh worker reported, as LaunchShapes holds them."""
 
     def __init__(self, reports):
-        self.shapes = {name: [] for name in (K1["name"], SORT["name"], K2["name"], *MERGES)}
+        self.shapes = {name: [] for name in KERNEL_NAMES}
         for report in reports:
             for name, shapes in report["launch_shapes"].items():
                 self.shapes[name] += [tuple(s) for s in shapes]
@@ -1629,7 +1692,8 @@ def mesh_worker(rank, world, store, runs):
                  "peak_device_bytes": peak, "launches": launches,
                  "launch_shapes": {k: v for k, v in shapes.shapes.items() if v},
                  "position_consolidations": stats.metrics["counters"]["position_consolidations"],
-                 "route_launches": probe.route_launches(), **probe.route_entry(),
+                 "route_launches": probe.route_launches(), "chunks": stats.chunks, "steps": probe.steps,
+                 **probe.route_entry(),
                  "distinct_kmers": stats.distinct_kmers, "reads": stats.reads, "timers_s": stats.metrics["timers_s"]})
             del probe, stats
             torch.cuda.empty_cache()
@@ -1694,7 +1758,7 @@ def phase_mesh_mp(device, tmp, main_ctx):
             raise AssertionError(f"{path}: the parts in name order differ from the independent NumPy count")
         for r in mine:
             check_mesh_launches(f"{path} rank {r['mesh_worker']}", impl, r["launches"], r["position_consolidations"],
-                                r["route_launches"], MESH_POSITIONS // MESH_RANKS)
+                                r["route_launches"], MESH_POSITIONS // MESH_RANKS, r["chunks"], r["steps"])
         launches = {name: sum(r["launches"][name] for r in mine) for name in mine[0]["launches"]}
         peaks = [r["peak_device_bytes"] for r in mine]
         wall = max(r["wall_s"] for r in mine)
@@ -1736,9 +1800,9 @@ def phase_mesh_spill(device, tmp, spill_ctx):
                 f"tempFileLocation={os.path.join(tmp, name + '_tmp')}", "noOfMergersAtOnce=4",
                 "noOfMergeThreads=4", "tableImpl=two", "verbose=0", *extra]
 
-    def entry(path, wall, peak, launches, shapes, stats, rec):
+    def entry(path, wall, peak, launches, shapes, stats, probe, rec):
         pc = stats.metrics["counters"]["position_consolidations"]
-        check_mesh_launches(path, "two", launches, pc, 0, MESH_POSITIONS)
+        check_mesh_launches(path, "two", launches, pc, 0, MESH_POSITIONS, stats.chunks, probe.steps)
         if not rec.merges:
             raise AssertionError(f"{path}: no native merge ran")
         if peak > SPILL_LIMIT:
@@ -1755,11 +1819,11 @@ def phase_mesh_spill(device, tmp, spill_ctx):
 
     runs = {}
     with SpillRecorder() as rec:
-        wall, peak, launches, shapes, stats, _ = run_mesh_path(
+        wall, peak, launches, shapes, stats, probe = run_mesh_path(
             device, argv("mesh_spill"), make_mesh(devices=[device] * MESH_POSITIONS))
     check_dump(out, want, "mesh_spill")
     mid_run = len(rec.runs) - MESH_POSITIONS  # the last MESH_POSITIONS runs are the final tables
-    log({**entry("mesh_spill", wall, peak, launches, shapes, stats, rec), "mid_run_spill_runs": mid_run})
+    log({**entry("mesh_spill", wall, peak, launches, shapes, stats, probe, rec), "mid_run_spill_runs": mid_run})
     if mid_run < 2 * MESH_POSITIONS:
         raise AssertionError(f"mesh_spill: {mid_run} runs spilled mid-run (want >= {2 * MESH_POSITIONS})")
     runs["mesh_spill"] = (launches, shapes)
@@ -1797,7 +1861,7 @@ def phase_mesh_spill(device, tmp, spill_ctx):
     engine._absorb = absorb
     try:
         with SpillRecorder() as rec:
-            wall, peak, launches, shapes, stats, _ = run_mesh_path(
+            wall, peak, launches, shapes, stats, probe = run_mesh_path(
                 device, resumed_argv, make_mesh(devices=[device] * MESH_POSITIONS))
     finally:
         engine._absorb = real_absorb
@@ -1806,7 +1870,7 @@ def phase_mesh_spill(device, tmp, spill_ctx):
     merged = {name for m in rec.merges for name in m["inputs"]}
     new_numbers = [int(r["file"].split("_")[1].split(".")[0]) for r in rec.runs]
     skipped = SPILL_READS - counted[0]
-    log({**entry("mesh_resume", wall, peak, launches, shapes, stats, rec), "snapshot_epoch": manifest["epoch"],
+    log({**entry("mesh_resume", wall, peak, launches, shapes, stats, probe, rec), "snapshot_epoch": manifest["epoch"],
          "reads_skipped": skipped, "snapshot_reads_absorbed": manifest["reads_absorbed"], "chunks": stats.chunks,
          "snapshot_runs": listed, "reads": stats.reads})
     if not 0 < skipped < SPILL_READS or skipped != manifest["reads_absorbed"] or stats.reads != SPILL_READS:
@@ -1823,8 +1887,8 @@ def phase_mesh_spill(device, tmp, spill_ctx):
 
 def phase_profile_flag(tmp):
     """Phase 11: a small two-level CLI run with profile=true writes its
-    torch.profiler trace next to the output, and the trace names K1's and
-    the sort's kernels."""
+    torch.profiler trace next to the output, and the trace names K1's, the
+    sort's and K8's kernels."""
     import json
 
     import numpy as np
@@ -1844,12 +1908,210 @@ def phase_profile_flag(tmp):
     trace = os.path.join(out + ".trace", "trace.json")
     with open(trace) as fh:
         events = json.load(fh)["traceEvents"]
-    found = {name: sum(name in e.get("name", "") for e in events) for name in ("fold_kernel", "leaf_kernel")}
+    found = {name: sum(name in e.get("name", "") for e in events)
+             for name in ("fold_kernel", "leaf_kernel", "extract_kernel")}
     log({"phase": "profile", "profile_flag": True, "trace": os.path.relpath(trace, tmp),
          "trace_bytes": os.path.getsize(trace), "events": len(events), "kernel_events": found,
          "byte_identical_to_numpy_count": True})
     if not all(found.values()):
         raise AssertionError(f"profile=true: the trace lacks a kernel: {found}")
+
+
+# ---- K8, the chunk step ------------------------------------------------------
+
+# The main path's K8 launch: one chunk of the main count, two-level (keys
+# into the raw region), as its launch_shapes log it: (R, L, k, canonical, mode).
+MAIN_K8_LAUNCH = (396_825, MAIN_L, MAIN_K, True, "keys")
+# Reads a random K8 shape takes, and (R, L) of reads that K8 cuts along the
+# row: longer than three of its tiles (4096 window starts a block).
+K8_RANDOM_READS = 20_000
+K8_LONG = (4, 3 * 4096 + 5)
+
+
+@functools.lru_cache(maxsize=None)
+def _genome(n):
+    import numpy as np
+
+    return np.random.default_rng(SEED + 2).choice(np.frombuffer(b"ACGT", np.uint8), size=n)
+
+
+def path_reads(path, R, L, device):
+    """R reads x L bp sampled as ``path`` samples them (the spill paths from
+    the 200-Mbase genome, the others from the 4.6-Mbase one), contiguous on
+    device."""
+    import numpy as np
+    import torch
+
+    n = SPILL_GENOME if path.startswith(("spill", "resume", "mesh_spill", "mesh_resume")) else MAIN_GENOME
+    reads = sample_reads(np.random.default_rng(SEED + 3), n, R, L, 0.001, genome=_genome(n))
+    return torch.from_numpy(reads).to(device)
+
+
+def k8_bound(R, L, k, canonical, mode):
+    """K8's least time: the reads read once and each window's lanes (records:
+    and its validity) written once; about 8 integer operations a base to
+    encode it, 8 a window and lane (20 with the reverse complement) and 8 a
+    window for its validity."""
+    from kmer_counter_tpu_torch.records import active_lanes
+
+    NL, n = active_lanes(k), R * (L - k + 1)
+    return bound(R * L + 4 * (NL + (mode == "records")) * n,
+                 8 * R * L + n * (NL * (20 if canonical else 8) + 8))
+
+
+def compare_k8(reads, k, canonical, mode, time_it, off=0, trace=True):
+    """K8 vs plain in one mode ("records" or "keys") on reads on the card:
+    bit-exact or raise.  Keys mode writes at column ``off`` of a region 5
+    columns wider, whose other columns must keep their fill, and adds the
+    all-T count to a tensor; its plain version is the wrapper's CPU branch
+    (the plain keys, their copy into the region, the count's add).  Returns
+    the timing dict (times None unless time_it; the traced device time
+    when trace); no PyTorch call computes K8's function, so library_ms is
+    None."""
+    import torch
+
+    from kmer_counter_tpu_torch.ops import fused_extract as fx
+    from kmer_counter_tpu_torch.ops.u32 import widen
+    from kmer_counter_tpu_torch.records import active_lanes
+
+    R, L = reads.shape
+    NL, n = active_lanes(k), R * (L - k + 1)
+    what = f"K8 kernel disagrees with plain: R={R} L={L} k={k} canonical={canonical} mode={mode} off={off}"
+    if mode == "records":
+        def kernel():
+            return fx.extract_chunk_lanes_major(reads, k, canonical)
+
+        def plain():
+            return fx.extract_chunk_lanes_major_reference(reads, k, canonical)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+    else:
+        fill = 0x5A5A5A5A
+        dst, dst_plain = (torch.full((NL, off + n + 5), fill, dtype=torch.int32, device=reads.device)
+                          for _ in range(2))
+        allt, allt_plain = (torch.zeros((), dtype=torch.int64, device=reads.device) for _ in range(2))
+
+        def kernel():
+            fx.extract_chunk_keys_into(reads, k, canonical, dst, off, allt)
+
+        def plain():
+            lanes, count = fx.extract_chunk_keys_reference(reads, k, canonical)
+            dst_plain[:, off : off + n] = lanes
+            allt_plain.add_(count)
+
+        kernel()
+        plain()
+        torch.cuda.synchronize()
+        got, want = dst[:, off : off + n], dst_plain[:, off : off + n]
+        if int(allt) != int(allt_plain) or not ((dst[:, :off] == fill).all() and (dst[:, off + n :] == fill).all()):
+            raise AssertionError(f"{what}: all-T count {int(allt)} vs {int(allt_plain)}, or a column outside "
+                                 f"the chunk's was written")
+    err = int((widen(got) - widen(want)).abs().max()) if got.numel() else 0
+    if not torch.equal(got, want):
+        raise AssertionError(f"{what}, max_abs_err {err}")
+    del got, want
+    cost = k8_bound(R, L, k, canonical, mode)
+    if not time_it:
+        return timing(err, None, None, cost)
+    ms, plain_ms, _ = in_turns(kernel, plain)
+    out = timing(err, ms, plain_ms, cost)
+    return {**out, "device_kernels": traced_kernels(kernel)} if trace else out
+
+
+def k8_random_shapes(device, cases):
+    """K8 vs plain, timed, in both modes at each k of the gpu tests'
+    EXTRACT_KS, canonical or not, L in k, k+1, 100, 151 (K8_RANDOM_READS
+    reads), and on reads longer than a tile (K8_LONG) at k = 31 and 127:
+    reads from the 4.6-Mbase genome with a tenth of a percent N and, in
+    each shape's first reads, lower case and all-T reads.  The traced
+    device time at L = 151 and on the long reads.  Returns the largest error."""
+    import torch
+
+    max_err = 0
+    shapes = [(K8_RANDOM_READS, L, k) for k in cases.EXTRACT_KS for L in sorted({k, k + 1, 100, 151}) if L >= k]
+    shapes += [(*K8_LONG, k) for k in (31, 127)]
+    for R, L, k in shapes:
+        reads = path_reads("main", R, L, device)
+        head = reads[: R // 50]
+        head += 32 * ((head >= ord("A")) & (head <= ord("Z"))).to(torch.uint8)
+        reads[R // 50 : R // 50 + 3] = ord("T")
+        for canonical in (False, True):
+            for mode in ("keys", "records"):
+                t = compare_k8(reads, k, canonical, mode, time_it=True, trace=L == 151 or L == K8_LONG[1])
+                max_err = max(max_err, t["max_abs_err"])
+                log({"phase": "kernel", "kernel": K8["name"], "R": R, "L": L, "k": k, "canonical": canonical,
+                     "mode": mode, "bit_exact": True, **t})
+        del reads
+    return max_err
+
+
+def phase_k8_kernel(device, cases, shapes_by_path):
+    """K8 vs plain: k8_random_shapes, the edge cases of tests/test_torch_cuda.py
+    (EXTRACT_CASES: lower case, N, zero-padded rows, all-T reads, raw_off,
+    R = 1, R one past the tile, reads longer than the tile, misaligned
+    reads) in both modes, and each (R, L, k, canonical, mode) that a path
+    launched, on reads sampled as that path samples them.  Returns
+    per_path_totals's dict."""
+    import numpy as np
+
+    max_err = k8_random_shapes(device, cases)
+    for name, build in sorted(cases.EXTRACT_CASES.items()):
+        case = build(np.random.default_rng(SEED))
+        reads = cases.extract_reads_on(case["reads"], device, case["start"])
+        for mode in ("keys", "records"):
+            t = compare_k8(reads, case["k"], case["canonical"], mode, time_it=False, off=case["off"])
+            max_err = max(max_err, t["max_abs_err"])
+        log({"phase": "kernel", "kernel": K8["name"], "edge_case": name, "R": reads.shape[0], "L": reads.shape[1],
+             "k": case["k"], "canonical": case["canonical"], "start": case["start"], "off": case["off"],
+             "bit_exact": True})
+
+    def at_shape(path, shape):
+        R, L, k, canonical, mode = shape
+        t = compare_k8(path_reads(path, R, L, device), k, canonical, mode, time_it=True)
+        log({"phase": "kernel", "kernel": K8["name"], "path": path, "main_path_launch_shape": True, "R": R, "L": L,
+             "k": k, "canonical": canonical, "mode": mode, "bit_exact": True, **t})
+        return t
+
+    return per_path_totals(shapes_by_path, at_shape, max_err)
+
+
+def time_chunk_step(device, reps=10):
+    """The two-level chunk step of the package on sys.path
+    (ops.pipeline.count_step_two_level) at the main path's chunk
+    (MAIN_K8_LAUNCH, its reads sampled as the main path samples them) into
+    a raw region of the main path's width: CUDA-event ms a step (reps steps,
+    twice) and each CUDA kernel's device time and launches in one traced
+    step, with their sum.  A tree before K8 runs the plain torch chain."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from kmer_counter_tpu_torch.ops import pipeline
+    from kmer_counter_tpu_torch.records import active_lanes
+
+    R, L, k, canonical, _ = MAIN_K8_LAUNCH
+    reads = path_reads("main", R, L, device)
+    raw_slots = 97_222_223  # the main path's raw region
+    table = SimpleNamespace(raw_lanes=torch.empty((active_lanes(k), raw_slots), dtype=torch.int32, device=device),
+                            raw_off=0, allt=torch.zeros((), dtype=torch.int64, device=device))
+
+    def step():
+        table.raw_off = 0
+        pipeline.count_step_two_level(table, reads, k, canonical)
+
+    ms = [cuda_ms(step, reps), cuda_ms(step, reps)]
+    kernels = traced_kernels(step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    held = torch.cuda.memory_allocated(device)
+    step()
+    torch.cuda.synchronize()
+    log({"chunk_step": "count_step_two_level", "R": R, "L": L, "k": k, "canonical": canonical, "ms": ms,
+         "device_ms": sum(v["ms"] for v in kernels.values()), "device_launches": sum(v["launches"] for v in
+                                                                                   kernels.values()),
+         "device_kernels": kernels, "held_bytes": held,
+         "peak_above_held_bytes": torch.cuda.max_memory_allocated(device) - held})
 
 
 def phase_mid_one(device, tmp):
@@ -1920,7 +2182,7 @@ def table_stages():
 
     return [(pipeline, "count_step_two_level"), (table2, "grow2"),
             (table2, "consolidate3"), (table2, "finalize2"),
-            (table, "append"), (table, "grow"), (table, "consolidate")]
+            (pipeline, "extract_chunk"), (table, "append"), (table, "grow"), (table, "consolidate")]
 
 
 def stage_peaks(device, run, stages=None):
@@ -2028,6 +2290,8 @@ def phase_profile(device, tmp, untraced=3, top=15):
         k1_us = {name: us for name, us in per_name.items() if any(k in name for k in K1_KERNEL_NAMES)}
         k1_launches = Counter(e.name for e in prof.events() if e.device_type == DeviceType.CUDA
                               and any(k in e.name for k in K1_KERNEL_NAMES))
+        k8_us = sum(us for name, us in per_name.items() if K8_KERNEL_NAME in name)
+        k8_launches = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA and K8_KERNEL_NAME in e.name)
         log({"phase": "profile", "table_impl": impl, "traced": True, "wall_s": stats.wall_seconds,
              "timers_s": stats.metrics["timers_s"], "device_busy_s": busy_s,
              "device_busy_share": busy_s / stats.wall_seconds, "device_events": len(spans),
@@ -2035,7 +2299,8 @@ def phase_profile(device, tmp, untraced=3, top=15):
              "sort_share_of_busy": sum(sort_us.values()) / busy_us,
              "k1_device_ms": sum(k1_us.values()) / 1e3,
              "k1_kernels": {name[:80]: {"device_ms": us / 1e3, "launches": k1_launches[name]}
-                            for name, us in sorted(k1_us.items())}})
+                            for name, us in sorted(k1_us.items())},
+             "k8_device_ms": k8_us / 1e3, "k8_launches": k8_launches, "chunks": stats.chunks})
         for name, us in sorted(sort_us.items()):
             log({"phase": "profile", "table_impl": impl, "sort_kernel": True, "device_ms": us / 1e3,
                  "name": name[:120]})
@@ -2048,14 +2313,16 @@ def phase_build():
     once, the build takes as long as the slowest nvcc, not the sum."""
     from kmer_counter_tpu_torch import cuda_build
     from kmer_counter_tpu_torch.ops import compact_live as cl
+    from kmer_counter_tpu_torch.ops import fused_extract as fx
     from kmer_counter_tpu_torch.ops import lane_sort as ls
     from kmer_counter_tpu_torch.ops import merge_fold_compact as mfc
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        for f in [pool.submit(mfc.tile_rows, 1), pool.submit(ls.tile_rows, 1), pool.submit(cl.tile_rows)]:
+    with ThreadPoolExecutor(4) as pool:
+        for f in [pool.submit(mfc.tile_rows, 1), pool.submit(ls.tile_rows, 1), pool.submit(cl.tile_rows),
+                  pool.submit(fx.tile_bases)]:
             f.result()
-    for source in ("merge_fold_compact", "lane_sort", "compact_live"):
+    for source in ("merge_fold_compact", "lane_sort", "compact_live", "fused_extract"):
         log({"phase": "build", "source": f"csrc/{source}.cu", "nvcc_s": cuda_build.build_seconds[source]})
         print(cuda_build.build_log.get(source, "").strip(), flush=True)
     log({"phase": "build", "wall_s": time.perf_counter() - t0})
@@ -2125,7 +2392,8 @@ def main():
         timings = {K1["name"]: timed(phase_kernel, device, cases, shapes_of(K1["name"])),
                    SORT["name"]: timed(phase_sort_kernel, device, cases, shapes_of(SORT["name"])),
                    K2["name"]: timed(phase_k2_kernel, device, cases, shapes_of(K2["name"])),
-                   **timed(phase_merge_kernels, device, cases, {name: shapes_of(name) for name in MERGES})}
+                   **timed(phase_merge_kernels, device, cases, {name: shapes_of(name) for name in MERGES}),
+                   K8["name"]: timed(phase_k8_kernel, device, cases, shapes_of(K8["name"]))}
         torch.cuda.empty_cache()
         timed(phase_mid_one, device, tmp)
         timed(phase_small, tmp, cases)
@@ -2133,7 +2401,7 @@ def main():
     log({"phase": "done", "seconds": time.perf_counter() - t_all})
 
     print(smi_line(), flush=True)
-    specs = [K1, SORT, K2, *MERGES.values()]
+    specs = [K1, SORT, K2, *MERGES.values(), K8]
     log({"kernels": [kernel_entry(spec, runs, timings[spec["name"]]) for spec in specs]})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

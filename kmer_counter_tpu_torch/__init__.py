@@ -4,16 +4,19 @@ The JAX package (``kmer_counter_tpu``) stays the reference; this package
 runs the same single-device count paths on an NVIDIA GPU:
 
   __main__ (CLI)          → engine.CountEngine (chunk loop, ingest thread)
-  ops.pipeline            → chunk step: ops.encode + ops.extract + raw append
+  ops.pipeline            → chunk step: ops.fused_extract (K8: encode +
+                            extract, written into the raw region)
   ops.table2              → two-level table: raw sort + consolidation
                             (consolidate3 and its split variants)
   ops.table               → one-level table (tableImpl=one)
   ops.sortcount           → multi-lane sort + segment reduce (finalize)
 
-and, each replacing Pallas kernels of pallas_sort with hand-written CUDA
-(csrc/): ops.merge_fold_compact (K1, and the kernel template that
-ops.merge_runs' K3/K4/K5 share), ops.compact_live (K2) and ops.lane_sort
-(K6 + K7, the sort behind sortcount.device_sort).
+and, each replacing Pallas kernels with hand-written CUDA (csrc/):
+ops.merge_fold_compact (K1, and the kernel template that ops.merge_runs'
+K3/K4/K5 share), ops.compact_live (K2) and ops.lane_sort (K6 + K7, the
+sort behind sortcount.device_sort), all of pallas_sort; and
+ops.fused_extract (K8, docs/experiments_pallas_extract.py: the chunk
+step; its plain version is ops.encode + ops.extract).
 
 The NumPy-only layers it needs are its own copies of the JAX package's:
 config (Options), records (the ABI), metrics, and io.fastq / io.native /

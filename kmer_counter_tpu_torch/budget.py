@@ -14,7 +14,12 @@ region of 97,222,223 slots, 83,333,250 live raw rows, 396,825 reads x
     row beyond the table, the sorted copy and the chunk's reads;
   * the chunk step (``count_step_two_level``: int64 bases, the pack tree,
     the key lanes) peaked at 4,826,825,216 bytes: 72.3 bytes a window
-    beyond the table and the reads.
+    beyond the table and the reads.  That was the plain torch chain; the
+    chunk step now runs the fused extraction kernel (ops.fused_extract),
+    which allocates nothing in the two-level step and only its
+    ``[NL+1, n]`` output in the one-level one.  The per-window cost is
+    kept as measured, a conservative bound, so the caps (and the spill
+    decisions tests/test_torch_spill.py pins) stay where they were.
 
 ``scripts/consolidate_peaks.py --spill [--k K]`` prints each step's
 measured peak beside the one reckoned here; tests/test_torch_spill.py

@@ -1,2 +1,3 @@
-"""Device ops of the port: encode, extract, chunk step, sort-reduce, the
-two-level table and the merge-fold-compact kernel (see each module)."""
+"""Device ops of the port: encode, extract, the fused extraction kernel
+behind the chunk step, sort-reduce, the tables and the merge, compaction
+and sort kernels (see each module)."""

@@ -12,7 +12,9 @@ variant, with each step of a consolidation wrapped by chip_smoke.py's
 stage_peaks: the raw sort (_sort_raw_desc, _sort_raw_ones, _sort_raw), the
 merge kernel (K1, K3, K4 or K5), the torch fold of K5's variant
 (_fold_counts_in_place) and the compaction K2, and around them
-consolidate3, the chunk step, grow2 and finalize2.  Prints, per path, the
+consolidate3, the chunk step (count_step_two_level, and inside it K8's
+extract_chunk_keys_into where the tree has K8), grow2 and finalize2.
+Prints, per path, the
 run's peak device memory, each step's, and the steps whose peak is the
 run's ("set_by": the innermost; consolidate3 alone means a line of its own
 between or after its steps, such as a copy of the prefix).
@@ -43,6 +45,15 @@ import tempfile
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEPS = ("_sort_raw_desc", "_sort_raw_ones", "_sort_raw", "merge_fold_compact", "merge_sorted_runs_fold_bitonic",
          "merge_sorted_runs_fold", "merge_sorted_runs", "_fold_counts_in_place", "compact_live")
+
+
+def k8_stages(name):
+    """[(ops.fused_extract, name)] where the tree on sys.path has K8, else []."""
+    try:
+        from kmer_counter_tpu_torch.ops import fused_extract
+    except ImportError:
+        return []
+    return [(fused_extract, name)]
 
 
 def spill_peaks(cs, device, tmp, k):
@@ -94,10 +105,12 @@ def spill_peaks(cs, device, tmp, k):
             return call
 
         if impl == "one":
-            stages = [(pipeline, "extract_chunk"), (table, "append"), (table, "grow"), (table, "consolidate")]
+            stages = [(pipeline, "extract_chunk"), *k8_stages("extract_chunk_lanes_major"), (table, "append"),
+                      (table, "grow"), (table, "consolidate")]
         else:
-            stages = [(pipeline, "count_step_two_level"), (table2, "grow2"), (table2, "consolidate3"),
-                      (table2, "finalize2"), (table2, "_sort_raw_desc"), (table2, "merge_fold_compact")]
+            stages = [(pipeline, "count_step_two_level"), *k8_stages("extract_chunk_keys_into"), (table2, "grow2"),
+                      (table2, "consolidate3"), (table2, "finalize2"), (table2, "_sort_raw_desc"),
+                      (table2, "merge_fold_compact")]
         reals = {key: getattr(*key) for key in sizes}
         for (module, name), size in sizes.items():
             setattr(module, name, reckoned(size, reals[(module, name)]))
@@ -146,8 +159,8 @@ def main():
             spill_peaks(cs, device, tmp, args.k or cs.MAIN_K)
         return
     cases = cs.load_test_cases()
-    stages = [(pipeline, "count_step_two_level"), (table2, "grow2"), (table2, "consolidate3"),
-              (table2, "finalize2"), *((table2, name) for name in STEPS)]
+    stages = [(pipeline, "count_step_two_level"), *k8_stages("extract_chunk_keys_into"), (table2, "grow2"),
+              (table2, "consolidate3"), (table2, "finalize2"), *((table2, name) for name in STEPS)]
     real = table2.consolidate3
     with tempfile.TemporaryDirectory(dir=HERE, prefix="chip_smoke_") as tmp:
         _, argv = cs.main_input(tmp)

@@ -2,21 +2,27 @@
 """Times the kernels of one tree of the port on one NVIDIA GPU with
 chip_smoke.py's own kernel-phase code: its random operands per NL (the
 sort, K1 and K3 at about 8M and 32M rows, K2 at about 8M rows a third
-live, K4 and K5 at about 8M rows), K1 and K3-K5 at the main path's
-largest launch shape on operands shaped as that path gives them
-(MAIN_LAUNCH) and on the 80%-live mix of earlier runs, its checks against
-the plain versions, its CUDA-event timing in turns and its traced device
-time per CUDA kernel.  So one chip call can time two commits in turns
-(A, B, B, A):
+live, K4 and K5 at about 8M rows, K8 at each k of its random shapes),
+K1 and K3-K5 at the main path's largest launch shape on operands shaped as
+that path gives them (MAIN_LAUNCH) and on the 80%-live mix of earlier
+runs, K8 at the main path's chunk (chip_smoke.MAIN_K8_LAUNCH), its checks
+against the plain versions, its CUDA-event timing in turns and its traced
+device time per CUDA kernel; and ``chunk_step``, the two-level chunk step
+(ops.pipeline.count_step_two_level) at the main path's chunk, whatever
+kernels the tree runs there (chip_smoke.time_chunk_step: a tree before K8
+runs the plain torch chain).  So one chip call can time two commits in
+turns (A, B, B, A):
 
     python3 scripts/time_kernels.py              # this checkout
     python3 scripts/time_kernels.py --root DIR   # another tree of the port
     python3 scripts/time_kernels.py --kernels merge_fold_compact,merge_sorted_runs_fold_bitonic
+    python3 scripts/time_kernels.py --kernels chunk_step --root DIR
 
 ``--root`` imports ``kmer_counter_tpu_torch`` from DIR (an unpacked ``git
 archive`` of another commit), which builds its kernels from its own
 ``csrc/``; the operands, checks and timing stay this checkout's.
-``--kernels`` times only the named ones (chip_smoke.py's names).  Prints
+``--kernels`` times only the named ones (chip_smoke.py's names, and
+``chunk_step``).  Prints
 the card's name and power limit, chip_smoke.py's kernel lines, then each
 source's nvcc report (registers, spills).
 """
@@ -61,9 +67,17 @@ def main():
     cases = cs.load_test_cases()
     gen = torch.Generator(device=device).manual_seed(cs.SEED)
     names = args.kernels.split(",") if args.kernels else [
-        cs.SORT["name"], cs.K2["name"], cs.K1["name"], *cs.MERGES]
+        cs.SORT["name"], cs.K2["name"], cs.K1["name"], *cs.MERGES, cs.K8["name"], "chunk_step"]
     for name in names:
-        if name == cs.SORT["name"]:
+        if name == "chunk_step":
+            cs.time_chunk_step(device)
+        elif name == cs.K8["name"]:
+            cs.k8_random_shapes(device, cases)
+            R, L, k, canonical, mode = cs.MAIN_K8_LAUNCH
+            t = cs.compare_k8(cs.path_reads("main", R, L, device), k, canonical, mode, time_it=True)
+            cs.log({"phase": "kernel", "kernel": name, "path": "main", "main_path_launch_shape": True, "R": R,
+                    "L": L, "k": k, "canonical": canonical, "mode": mode, "bit_exact": True, **t})
+        elif name == cs.SORT["name"]:
             cs.sort_random_shapes(device, cases, gen)
         elif name == cs.K2["name"]:
             cs.k2_random_shapes(device, gen)

@@ -9,8 +9,8 @@ without the repo's conftest (which configures JAX):
 Its case builders are shared with the CPU tests that hold the plain
 versions against the JAX package (tests/test_torch_merge_fold_compact.py,
 test_torch_merge_runs.py, test_torch_compact_live.py,
-test_torch_lane_sort.py, test_torch_table2.py, test_torch_engine.py) and
-with chip_smoke.py.  Tolerance: bit-exact equality — everything is
+test_torch_lane_sort.py, test_torch_table2.py, test_torch_engine.py,
+test_torch_fused_extract.py) and with chip_smoke.py.  Tolerance: bit-exact equality — everything is
 integer.  The sort and merge_sorted_runs leave the order among equal keys
 unspecified, so their payloads are compared as a multiset per key.
 """
@@ -248,6 +248,78 @@ def operands(case, device):
     a_ops = [from_numpy(a[i], device) for i in range(NL)] + [from_numpy(ac, device)]
     b_ops = [from_numpy(bd[i], device) for i in range(NL)] + [from_numpy(bc, device)]
     return a_ops, b_ops, NL
+
+
+# Window starts (read bytes) per block of the extraction kernel K8
+# (csrc/fused_extract.cu).
+EXTRACT_TILE = 4096
+# K8's k at random (each at L = k, k+1, 100, 151): every lane count, full
+# and partial last lanes.
+EXTRACT_KS = [1, 15, 16, 31, 32, 33, 55, 64, 65, 101, 127, 128]
+
+
+def extract_reads(rng, R, L):
+    """[R, L] uint8 reads for K8: A/C/G/T, a quarter lower case, one base in
+    200 invalid (N, n, a zero byte, '.', 'U', and 0xC1, 0xE3: A and C but
+    for their high bits); with R >= 3, read 1 all T in either case (the
+    all-T side count at k % 16 == 0) and the second half of the last read
+    zero bytes (a padded read)."""
+    bases = np.frombuffer(b"ACGTACGTACGTacgt", np.uint8)
+    reads = bases[rng.integers(0, len(bases), (R, L))]
+    invalid = np.frombuffer(b"Nn\x00.U\xc1\xe3", np.uint8)
+    bad = rng.random((R, L)) < 0.005
+    reads[bad] = invalid[rng.integers(0, len(invalid), int(bad.sum()))]
+    if R >= 3:
+        reads[1] = np.where(rng.random(L) < 0.3, ord("t"), ord("T"))
+        reads[-1, L // 2 :] = 0
+    return reads
+
+
+def _extract_case(reads, k, canonical, start=0, off=0):
+    """A K8 case: the reads, k, canonical, the reads' byte offset past a
+    16-byte boundary (``start``) and the destination column of keys mode."""
+    return dict(reads=reads, k=k, canonical=canonical, start=start, off=off)
+
+
+def _lower(reads):
+    return np.where((reads >= ord("A")) & (reads <= ord("Z")), reads + 32, reads).astype(np.uint8)
+
+
+def _all_t(k):
+    reads = np.full((5, k + 40), ord("T"), np.uint8)
+    reads[1, ::3] = ord("t")
+    reads[2, 7] = ord("N")
+    return _extract_case(reads, k, False)
+
+
+EXTRACT_CASES = {
+    "lower_case": lambda rng: _extract_case(_lower(extract_reads(rng, 300, 100)), 31, True),
+    "n_bases": lambda rng: _extract_case(np.where(rng.random((300, 100)) < 0.1, np.uint8(ord("N")),
+                                                  extract_reads(rng, 300, 100)), 15, False),
+    "zero_padded_rows": lambda rng: _extract_case(np.pad(extract_reads(rng, 200, 151), ((0, 100), (0, 0))), 55,
+                                                  True),
+    **{f"all_t_k{k}": (lambda rng, k=k: _all_t(k)) for k in (16, 32, 64, 128)},
+    "raw_off": lambda rng: _extract_case(extract_reads(rng, 500, 100), 31, True, off=1_234_567),
+    "raw_off_allt": lambda rng: _extract_case(extract_reads(rng, 500, 100), 32, False, off=999_999),
+    "r_1": lambda rng: _extract_case(extract_reads(rng, 1, 151), 101, True),
+    "r_one_past_the_tile": lambda rng: _extract_case(extract_reads(rng, EXTRACT_TILE // 100 + 1, 100), 31, True),
+    "tile_of_reads_exactly": lambda rng: _extract_case(extract_reads(rng, EXTRACT_TILE // 64, 64), 64, False),
+    "long_reads_row_tiled": lambda rng: _extract_case(extract_reads(rng, 3, 3 * EXTRACT_TILE + 5), 127, True),
+    "l_equals_k": lambda rng: _extract_case(extract_reads(rng, 5000, 64), 64, True),
+    **{f"misaligned_{s}": (lambda rng, s=s: _extract_case(extract_reads(rng, 700, 100), 33, s % 2 == 1, start=s))
+       for s in (1, 7, 15)},
+}
+
+
+def extract_reads_on(reads, device, start=0):
+    """The reads as a contiguous [R, L] uint8 tensor on device whose data
+    begins ``start`` bytes past a 16-byte boundary (as a row slice of the
+    mesh's chunk may)."""
+    R, L = reads.shape
+    buf = torch.zeros(R * L + 16, dtype=torch.uint8, device=device)
+    out = buf[start : start + R * L].view(R, L)
+    out.copy_(torch.from_numpy(np.ascontiguousarray(reads)))
+    return out
 
 
 def _sort_case(keys, payload):
@@ -936,3 +1008,90 @@ def test_two_ranks_spill_route_in_rounds_on_cuda(cuda, tmp_path):
         parts = sorted(f for f in os.listdir(tmp_path / impl) if ".part" in f)
         assert len(parts) == 4
         assert b"".join((tmp_path / impl / f).read_bytes() for f in parts) == want, impl
+
+
+# ---- K8: the fused encode + extract ------------------------------------------
+
+
+def extract_vs_plain(reads, k, canonical, off=0):
+    """K8 in both modes against its plain versions on the card: records
+    bit-exact; keys written at column ``off`` of a wider region, the
+    columns around them untouched, the all-T count added to what ``allt``
+    held.  Returns the all-T count."""
+    from kmer_counter_tpu_torch.ops import fused_extract as fx
+    from kmer_counter_tpu_torch.records import active_lanes
+
+    R, L = reads.shape
+    n = R * (L - k + 1)
+    before = fx.launches
+    got = fx.extract_chunk_lanes_major(reads, k, canonical)
+    want = fx.extract_chunk_lanes_major_reference(reads, k, canonical)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), f"records k={k} canonical={canonical} R={R} L={L}"
+    dst = torch.full((active_lanes(k), off + n + 5), 0x5A5A5A5A, dtype=torch.int32, device=reads.device)
+    allt = torch.full((), 3, dtype=torch.int64, device=reads.device)
+    fx.extract_chunk_keys_into(reads, k, canonical, dst, off, allt)
+    want_keys, want_allt = fx.extract_chunk_keys_reference(reads, k, canonical)
+    torch.cuda.synchronize()
+    assert torch.equal(dst[:, off : off + n], want_keys), f"keys k={k} canonical={canonical} R={R} L={L}"
+    assert (dst[:, :off] == 0x5A5A5A5A).all() and (dst[:, off + n :] == 0x5A5A5A5A).all()
+    assert int(allt) == 3 + int(want_allt)
+    assert fx.launches == before + 2
+    return int(want_allt)
+
+
+@pytest.mark.gpu
+def test_extract_tile_bases(cuda):
+    from kmer_counter_tpu_torch.ops import fused_extract as fx
+
+    assert fx.tile_bases() == EXTRACT_TILE
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(EXTRACT_CASES))
+def test_extract_kernel_cases(cuda, name):
+    case = EXTRACT_CASES[name](np.random.default_rng(0))
+    reads = extract_reads_on(case["reads"], cuda, case["start"])
+    allt = extract_vs_plain(reads, case["k"], case["canonical"], case["off"])
+    if name.startswith("all_t") or name == "raw_off_allt":
+        assert allt > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize("k", EXTRACT_KS)
+def test_extract_kernel_random(cuda, k, canonical):
+    rng = np.random.default_rng(k)
+    for L in sorted({k, k + 1, 100, 151}):
+        if L >= k:
+            extract_vs_plain(extract_reads_on(extract_reads(rng, 3000, L), cuda), k, canonical)
+
+
+@pytest.mark.gpu
+def test_extract_failed_launch_raises_and_never_falls_back(cuda, monkeypatch):
+    from kmer_counter_tpu_torch.ops import fused_extract as fx
+
+    reads = extract_reads_on(extract_reads(np.random.default_rng(0), 10, 40), cuda)
+    lib = fx._lib()
+    dst = torch.zeros((2, 400), dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    # k=0, L<k, a destination narrower than the windows, keys mode without allt
+    for k, L, ld, allt in ((0, 40, 400, 1), (41, 40, 400, 1), (20, 40, 209, 1), (20, 40, 400, 0)):
+        assert lib.fx_extract(reads.data_ptr(), 10, L, k, 0, 1, dst.data_ptr(), ld, 0,
+                              dst.data_ptr() if allt else None, stream) != 0
+
+    class Refusing:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        @staticmethod
+        def fx_extract(*args):
+            return 9  # cudaErrorInvalidConfiguration
+
+    monkeypatch.setattr(fx, "_lib", Refusing)
+    before = fx.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fx.extract_chunk_lanes_major(reads, 20)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fx.extract_chunk_keys_into(reads, 20, False, dst, 0, torch.zeros((), dtype=torch.int64, device=cuda))
+    assert fx.launches == before

@@ -34,6 +34,7 @@ PORT_MODULES = [
     "kmer_counter_tpu_torch.ops.compact_live",
     "kmer_counter_tpu_torch.ops.encode",
     "kmer_counter_tpu_torch.ops.extract",
+    "kmer_counter_tpu_torch.ops.fused_extract",
     "kmer_counter_tpu_torch.ops.lane_sort",
     "kmer_counter_tpu_torch.ops.merge_fold_compact",
     "kmer_counter_tpu_torch.ops.merge_runs",
