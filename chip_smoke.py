@@ -8,8 +8,8 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
 
   1. device   — card name and power limit (nvidia-smi), torch / CUDA versions
-  2. build    — nvcc builds every kernel of the main paths from csrc/, one
-                process per source, all started together (four sources)
+  2. build    — nvcc builds every kernel from csrc/, one process per
+                source, all started together (five sources)
   3. main     — the CLI (kmer_counter_tpu_torch.__main__.main) counts 2M
                 reads x 100 bp sampled from a 4.6-Mbase genome at k=31
                 canonical, gpuMemoryLimit=8e9, with the two-level table;
@@ -131,13 +131,27 @@ and prints no result):
                 snapshots): the reads it skipped are the snapshot's, its
                 merges read the runs the snapshot lists, its runs are
                 numbered after them; the same dump, peak at most 2e9
+ 16. probes   — (after phase 8) D1-D7, the Mosaic probes under docs/: the
+                three ported probe harnesses' main() on the card
+                (kmer_counter_tpu_torch/probes/: experiments_mosaic_caps,
+                experiments_bitonic_merge, probe_compact_overhead; each
+                checks its results against the probe's NumPy test), traced,
+                with the launch counts set to 0 just before each and read
+                just after: each probe kernel's launches by its wrapper's
+                count, by the calls recorded under each D-id and in the
+                trace must agree; each D-id at each launch shape of its
+                harness, kernel against plain (bit-exact) and against the
+                probe's NumPy check, timed (CUDA events, plain version,
+                library call, traced device time, bound); each kernel
+                against its plain version at the edge cases and random
+                shapes of tests/test_torch_cuda.py
 
 The last three lines: the card's name and power limit, one JSON object
 describing each kernel (its launches and times summed over phases 3-7
-and 12-15,
-under "paths" each phase's own, and under "device_kernels" its CUDA
-kernels' traced device time and launches at its largest launch shape),
-and {"ok": true, "device": {...}}.
+and 12-15, D1-D7's over their harnesses (phase 16),
+under "paths" each phase's or harness's own, and under "device_kernels"
+its CUDA kernels' traced device time and launches at its largest launch
+shape), and {"ok": true, "device": {...}}.
 
 With --profile, phases 1 and 2 are followed by, for each table: three
 untraced runs of the main count (wall, engine timers, peak device memory
@@ -202,6 +216,32 @@ K8 = dict(name="fused_extract", route="cuda", source="kmer_counter_tpu_torch/csr
           replaces="docs/experiments_pallas_extract.py:132", cuda_kernels="extract_kernel")
 K8_KERNEL_NAME = "extract_kernel<"
 KERNEL_NAMES = (K1["name"], SORT["name"], K2["name"], *MERGES, K8["name"])
+# D1-D7: the Mosaic probes under docs/, three CUDA kernels in one source
+# behind ops.probes' three wrappers; the ported probe scripts
+# (kmer_counter_tpu_torch/probes/) are the paths that launch them.
+# "library_call" says what library_ms times.
+PROBES_CU = "kmer_counter_tpu_torch/csrc/probes.cu"
+PROBE_HARNESSES = ("experiments_mosaic_caps", "experiments_bitonic_merge", "probe_compact_overhead")
+PROBE_WRAPPERS = ("pair_merge", "tile_compact", "row_gather")
+
+
+def _probe(d, wrapper, replaces, library_call):
+    return dict(name=f"{d}_{wrapper}", route="cuda", source=PROBES_CU, replaces=replaces,
+                cuda_kernels=f"{wrapper}_kernel", wrapper=wrapper, library_call=library_call)
+
+
+_SORT_CAT = "torch.sort of the widened concatenation"
+PROBE_SPECS = {
+    "D1": _probe("D1", "tile_compact", "docs/probe_compact_overhead.py:48",
+                 "copy: Tensor.clone; cumsum: torch.cumsum of the dead flags a tile (the scan alone, no add); "
+                 "network: ops[:, live != 0] (no per-tile placement, no zeros)"),
+    "D2": _probe("D2", "pair_merge", "docs/experiments_bitonic_merge.py:52", _SORT_CAT),
+    "D3": _probe("D3", "pair_merge", "docs/experiments_bitonic_merge.py:88", _SORT_CAT),
+    "D4": _probe("D4", "row_gather", "docs/experiments_mosaic_caps.py:36", "torch.roll"),
+    "D5": _probe("D5", "row_gather", "docs/experiments_mosaic_caps.py:55", "torch.roll"),
+    "D6": _probe("D6", "row_gather", "docs/experiments_mosaic_caps.py:75", "Tensor.index_select"),
+    "D7": _probe("D7", "pair_merge", "docs/experiments_mosaic_caps.py:196", _SORT_CAT),
+}
 MAIN_K, MAIN_L, MAIN_READS, MAIN_FILES, MAIN_GENOME = 31, 100, 2_000_000, 4, 4_600_000
 MEMORY_LIMIT = 8_000_000_000
 # The spill and resume phases: 2M reads x 100 bp from a 200-Mbase genome (about
@@ -2114,6 +2154,206 @@ def time_chunk_step(device, reps=10):
          "peak_above_held_bytes": torch.cuda.max_memory_allocated(device) - held})
 
 
+# ---- D1-D7: the probe harnesses and their kernels --------------------------------
+
+
+class ProbeShapes:
+    """Records the shape of each call of the probe wrappers (ops.probes)
+    while a harness runs, under the D-id it computes: (G, Ta, Tb, B
+    descending) for pair_merge (D2 with G = 1 and D3 with G > 1, B
+    descending; D7 B ascending), (mode, n_ops, n) for tile_compact (D1) and
+    (R, W, starts, rows, shift) for row_gather (D4 rolls by a negative
+    shift, D5 by a positive one, D6 gathers windows)."""
+
+    def __init__(self):
+        from kmer_counter_tpu_torch.ops import probes
+
+        self._probes = probes
+        self.shapes = {d: [] for d in PROBE_SPECS}
+        self._reals = {name: getattr(probes, name) for name in PROBE_WRAPPERS}
+
+    def _pair_merge(self, a, b, *, b_descending):
+        d = "D7" if not b_descending else ("D2" if a.shape[0] == 1 else "D3")
+        self.shapes[d].append((a.shape[0], a.shape[1], b.shape[1], bool(b_descending)))
+        return self._reals["pair_merge"](a, b, b_descending=b_descending)
+
+    def _tile_compact(self, ops, live, mode):
+        self.shapes["D1"].append((mode, len(ops), live.numel()))
+        return self._reals["tile_compact"](ops, live, mode)
+
+    def _row_gather(self, x, starts, rows, shift):
+        d = "D6" if starts.numel() > 1 or shift == 0 else ("D4" if shift < 0 else "D5")
+        self.shapes[d].append((*x.shape, tuple(starts.tolist()), rows, shift))
+        return self._reals["row_gather"](x, starts, rows, shift)
+
+    def __enter__(self):
+        for name in PROBE_WRAPPERS:
+            setattr(self._probes, name, getattr(self, f"_{name}"))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._reals.items():
+            setattr(self._probes, name, fn)
+
+
+def run_probe_harness(device, harness):
+    """One harness's main() on the card (kmer_counter_tpu_torch.probes.<harness>),
+    traced: the wrappers' launch counts set to 0 just before it and read
+    just after, its launch shapes by D-id, and each CUDA kernel's launches
+    in the trace; the three must agree.  Returns (launches by D-id,
+    ProbeShapes)."""
+    import importlib
+
+    import torch
+
+    from kmer_counter_tpu_torch.ops import probes
+
+    module = importlib.import_module(f"kmer_counter_tpu_torch.probes.{harness}")
+    with ProbeShapes() as rec:
+        torch.cuda.synchronize()
+        for name in probes.launches:
+            probes.launches[name] = 0
+        t0 = time.perf_counter()
+        kernels = traced_kernels(lambda: module.main(device))
+        wall = time.perf_counter() - t0
+        counts = dict(probes.launches)
+    traced = {w: sum(v["launches"] for k, v in kernels.items() if k.startswith(f"{w}_kernel")) for w in counts}
+    recorded = {w: sum(len(rec.shapes[d]) for d, spec in PROBE_SPECS.items() if spec["wrapper"] == w)
+                for w in counts}
+    if not counts == traced == recorded:
+        raise AssertionError(f"{harness}: launches by the wrappers' counts {counts}, in the trace {traced}, "
+                             f"by the recorded calls {recorded}")
+    by_d = {d: len(shapes) for d, shapes in rec.shapes.items() if shapes}
+    log({"phase": "probes", "harness": harness, "wall_s": wall, "launches": counts, "traced_launches": traced,
+         "launches_by_probe": by_d})
+    return by_d, rec
+
+
+def probe_at_shape(d, shape, device):
+    """D-id d at one launch shape of its harness: kernel against plain
+    (bit-exact, or raise) and against the probe's NumPy check, timed in
+    turns with its plain version and library call, and traced; the bound
+    counts each input byte read once and each output byte written once
+    (D1 network: the flags, the live rows of the operands, the output)."""
+    import numpy as np
+    import torch
+
+    from kmer_counter_tpu_torch.ops import probes
+    from kmer_counter_tpu_torch.ops.u32 import from_numpy, to_numpy, widen
+    from kmer_counter_tpu_torch.probes import probe_compact_overhead as pco
+
+    wrapper = PROBE_SPECS[d]["wrapper"]
+    reps = 5 if wrapper == "tile_compact" else 50
+    if wrapper == "pair_merge":
+        # uniform keys, each run sorted, B stored descending when asked
+        G, ta, tb, desc = shape
+        rng = np.random.default_rng(SEED)
+        a_np, b_np = (np.sort(rng.integers(0, 2**32, (G, t), dtype=np.uint64).astype(np.uint32), axis=1)
+                      for t in (ta, tb))
+        a, b = from_numpy(a_np, device), from_numpy(b_np[:, ::-1] if desc else b_np, device)
+        got, want = probes.pair_merge(a, b, b_descending=desc), probes.pair_merge_reference(a, b, b_descending=desc)
+        check = np.sort(np.concatenate([to_numpy(a), to_numpy(b)], 1), 1)
+        n = G * (ta + tb)
+        cost = bound(8 * n, 4 * n)
+        both = torch.cat([widen(a), widen(b)], 1)
+        kernel = functools.partial(probes.pair_merge, a, b, b_descending=desc)
+        plain = functools.partial(probes.pair_merge_reference, a, b, b_descending=desc)
+        library = functools.partial(torch.sort, both, dim=1)
+    elif wrapper == "tile_compact":
+        mode, n_ops, n = shape
+        ops_np, live_np = pco.make_inputs(n // probes.TILE)
+        x, live = from_numpy(ops_np, device), from_numpy(live_np, device)
+        ops = list(x.unbind(0))
+        got, want = probes.tile_compact(ops, live, mode), probes.tile_compact_reference(ops, live, mode)
+        check = pco.expected(mode, ops_np, live_np)
+        live_rows = int(np.count_nonzero(live_np))
+        cost = {"copy": bound(8 * n_ops * n, 0), "cumsum": bound(4 * (2 * n_ops + 1) * n, (n_ops + 2) * n),
+                "network": bound(4 * (n + live_rows * n_ops + n_ops * n), 2 * n)}[mode]
+        kernel = functools.partial(probes.tile_compact, ops, live, mode)
+        plain = functools.partial(probes.tile_compact_reference, ops, live, mode)
+        dead = (live == 0).view(-1, probes.TILE)
+        alive = live != 0
+        library = {"copy": x.clone, "cumsum": functools.partial(torch.cumsum, dead, 1),
+                   "network": lambda: x[:, alive]}[mode]
+    else:
+        R, W, starts, rows, shift = shape
+        x_np = np.random.default_rng(SEED).integers(0, 2**32, (R, W), dtype=np.uint64).astype(np.uint32)
+        x, s = from_numpy(x_np, device), torch.tensor(starts, dtype=torch.int32, device=device)
+        got, want = probes.row_gather(x, s, rows, shift), probes.row_gather_reference(x, s, rows, shift)
+        idx = (np.asarray(starts)[:, None] + shift + np.arange(rows)) % R
+        check = x_np[idx]
+        cost = bound(4 * (len(starts) + 2 * len(starts) * rows * W), 4 * len(starts) * rows)
+        kernel = functools.partial(probes.row_gather, x, s, rows, shift)
+        plain = functools.partial(probes.row_gather_reference, x, s, rows, shift)
+        flat = torch.from_numpy(idx.reshape(-1)).to(device)
+        library = (functools.partial(torch.roll, x, -shift, 0) if len(starts) == 1 and rows == R
+                   else functools.partial(x.index_select, 0, flat))
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{d} kernel disagrees with plain at {shape}")
+    if not np.array_equal(to_numpy(got).reshape(check.shape), check):
+        raise AssertionError(f"{d} kernel disagrees with the probe's NumPy check at {shape}")
+    del got, want
+    ms, plain_ms, library_ms = in_turns(kernel, plain, library, kernel_reps=reps, plain_reps=max(3, reps // 5))
+    return {**timing(0, ms, plain_ms, cost, library_ms), "device_kernels": traced_kernels(kernel)}
+
+
+def probe_kernel_checks(device, cases):
+    """Each probe kernel against its plain version, bit-exact: the edge
+    cases of tests/test_torch_cuda.py (the probes' shapes, G = 1, lengths
+    off the block's range, keys 0 and 0xFFFFFFFF, D1's no live row, all
+    live, live last rows) and probe_random_shapes."""
+    import numpy as np
+
+    for shape in cases.PROBE_MERGE_SHAPES:
+        cases.probe_merge_vs_plain(*cases.probe_merge_case(np.random.default_rng(sum(shape)), *shape), device)
+    for name in sorted(cases.PROBE_TILE_CASES):
+        cases.probe_tile_vs_plain(*cases.probe_tile_case(np.random.default_rng(SEED), *cases.PROBE_TILE_CASES[name]),
+                                  device)
+    for name in sorted(cases.PROBE_GATHER_CASES):
+        R, W, starts, rows, shift = cases.PROBE_GATHER_CASES[name]
+        cases.probe_gather_vs_plain(cases.probe_gather_case(np.random.default_rng(SEED), R, W), starts, rows, shift,
+                                    device)
+    rng = np.random.default_rng(SEED + 11)
+    shapes = cases.probe_random_shapes(rng)
+    for G, ta, tb in shapes["pair_merge"]:
+        cases.probe_merge_vs_plain(*cases.probe_merge_case(rng, G, ta, tb), device)
+    for n_ops, tiles, density in shapes["tile_compact"]:
+        cases.probe_tile_vs_plain(*cases.probe_tile_case(rng, n_ops, tiles, density), device)
+    for R, W, starts, rows, shift in shapes["row_gather"]:
+        cases.probe_gather_vs_plain(cases.probe_gather_case(rng, R, W), starts, rows, shift, device)
+    log({"phase": "probes", "bit_exact": True, "edge_cases": {"pair_merge": len(cases.PROBE_MERGE_SHAPES),
+                                                               "tile_compact": sorted(cases.PROBE_TILE_CASES),
+                                                               "row_gather": sorted(cases.PROBE_GATHER_CASES)},
+         "random_shapes": {k: len(v) for k, v in shapes.items()}})
+
+
+def phase_probes(device, cases):
+    """D1-D7: the three probe harnesses' main() on the card (each checks its
+    results against the probe's NumPy test and raises on a difference),
+    their launches (run_probe_harness), each kernel against its plain
+    version at the edge cases and random shapes (probe_kernel_checks) and,
+    timed, at each launch shape of its harness.  Returns ({D-id:
+    per_path_totals's dict}, {D-id: {harness: launches}})."""
+    timings, launches = {}, {}
+    for harness in PROBE_HARNESSES:
+        by_d, rec = run_probe_harness(device, harness)
+        for d, count in by_d.items():
+            launches[d] = {harness: count}
+
+            def at_shape(path, shape, d=d):
+                t = probe_at_shape(d, shape, device)
+                log({"phase": "probes", "kernel": PROBE_SPECS[d]["name"], "path": path, "shape": shape,
+                     "bit_exact": True, "numpy_check": True, **t})
+                return t
+
+            timings[d] = per_path_totals({harness: rec.shapes[d]}, at_shape, 0)
+    if sorted(launches) != sorted(PROBE_SPECS):
+        raise AssertionError(f"the harnesses launched {sorted(launches)}, not every one of {sorted(PROBE_SPECS)}")
+    probe_kernel_checks(device, cases)
+    return timings, launches
+
+
 def phase_mid_one(device, tmp):
     """A one-level run at k=55 forward (4 key lanes) with several
     consolidations."""
@@ -2316,13 +2556,14 @@ def phase_build():
     from kmer_counter_tpu_torch.ops import fused_extract as fx
     from kmer_counter_tpu_torch.ops import lane_sort as ls
     from kmer_counter_tpu_torch.ops import merge_fold_compact as mfc
+    from kmer_counter_tpu_torch.ops import probes
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         for f in [pool.submit(mfc.tile_rows, 1), pool.submit(ls.tile_rows, 1), pool.submit(cl.tile_rows),
-                  pool.submit(fx.tile_bases)]:
+                  pool.submit(fx.tile_bases), pool.submit(probes.kernel_tile)]:
             f.result()
-    for source in ("merge_fold_compact", "lane_sort", "compact_live", "fused_extract"):
+    for source in ("merge_fold_compact", "lane_sort", "compact_live", "fused_extract", "probes"):
         log({"phase": "build", "source": f"csrc/{source}.cu", "nvcc_s": cuda_build.build_seconds[source]})
         print(cuda_build.build_log.get(source, "").strip(), flush=True)
     log({"phase": "build", "wall_s": time.perf_counter() - t0})
@@ -2395,6 +2636,8 @@ def main():
                    **timed(phase_merge_kernels, device, cases, {name: shapes_of(name) for name in MERGES}),
                    K8["name"]: timed(phase_k8_kernel, device, cases, shapes_of(K8["name"]))}
         torch.cuda.empty_cache()
+        probe_timings, probe_launches = timed(phase_probes, device, cases)
+        torch.cuda.empty_cache()
         timed(phase_mid_one, device, tmp)
         timed(phase_small, tmp, cases)
         timed(phase_profile_flag, tmp)
@@ -2402,7 +2645,10 @@ def main():
 
     print(smi_line(), flush=True)
     specs = [K1, SORT, K2, *MERGES.values(), K8]
-    log({"kernels": [kernel_entry(spec, runs, timings[spec["name"]]) for spec in specs]})
+    entries = [kernel_entry(spec, runs, timings[spec["name"]]) for spec in specs]
+    entries += [kernel_entry(spec, {path: ({spec["name"]: n}, None) for path, n in probe_launches[d].items()},
+                             probe_timings[d]) for d, spec in PROBE_SPECS.items()]
+    log({"kernels": entries})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})
 

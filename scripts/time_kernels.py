@@ -10,19 +10,23 @@ against the plain versions, its CUDA-event timing in turns and its traced
 device time per CUDA kernel; and ``chunk_step``, the two-level chunk step
 (ops.pipeline.count_step_two_level) at the main path's chunk, whatever
 kernels the tree runs there (chip_smoke.time_chunk_step: a tree before K8
-runs the plain torch chain).  So one chip call can time two commits in
-turns (A, B, B, A):
+runs the plain torch chain); and ``probes``, D1-D7 (chip_smoke.phase_probes:
+the three probe harnesses traced, then each probe kernel at each launch
+shape of its harness against its plain version and the probe's NumPy
+check, timed, and at the edge and random shapes).  So one chip call can
+time two commits in turns (A, B, B, A):
 
     python3 scripts/time_kernels.py              # this checkout
     python3 scripts/time_kernels.py --root DIR   # another tree of the port
     python3 scripts/time_kernels.py --kernels merge_fold_compact,merge_sorted_runs_fold_bitonic
     python3 scripts/time_kernels.py --kernels chunk_step --root DIR
+    python3 scripts/time_kernels.py --kernels probes --root DIR
 
 ``--root`` imports ``kmer_counter_tpu_torch`` from DIR (an unpacked ``git
 archive`` of another commit), which builds its kernels from its own
 ``csrc/``; the operands, checks and timing stay this checkout's.
-``--kernels`` times only the named ones (chip_smoke.py's names, and
-``chunk_step``).  Prints
+``--kernels`` times only the named ones (chip_smoke.py's names,
+``chunk_step`` and ``probes``).  Prints
 the card's name and power limit, chip_smoke.py's kernel lines, then each
 source's nvcc report (registers, spills).
 """
@@ -67,10 +71,12 @@ def main():
     cases = cs.load_test_cases()
     gen = torch.Generator(device=device).manual_seed(cs.SEED)
     names = args.kernels.split(",") if args.kernels else [
-        cs.SORT["name"], cs.K2["name"], cs.K1["name"], *cs.MERGES, cs.K8["name"], "chunk_step"]
+        cs.SORT["name"], cs.K2["name"], cs.K1["name"], *cs.MERGES, cs.K8["name"], "chunk_step", "probes"]
     for name in names:
         if name == "chunk_step":
             cs.time_chunk_step(device)
+        elif name == "probes":
+            cs.phase_probes(device, cases)
         elif name == cs.K8["name"]:
             cs.k8_random_shapes(device, cases)
             R, L, k, canonical, mode = cs.MAIN_K8_LAUNCH

@@ -1,7 +1,8 @@
 """The port's copies of the JAX package's NumPy-only modules (config,
 records, metrics, checkpoint, io.fastq, io.native, io.dump, io.printer,
 io.spill) against the originals: the same inputs give the same results,
-and the same files, byte for byte."""
+and the same files, byte for byte.  Also the constants the port keeps of
+its own (D1's tile)."""
 
 import dataclasses
 import os
@@ -18,8 +19,10 @@ from kmer_counter_tpu.io import fastq as jax_fastq
 from kmer_counter_tpu.io import native as jax_native
 from kmer_counter_tpu.io import printer as jax_printer
 from kmer_counter_tpu.io import spill as jax_spill
+from kmer_counter_tpu.ops import pallas_sort
 from kmer_counter_tpu_torch import checkpoint, config, metrics, records
 from kmer_counter_tpu_torch.io import dump, fastq, native, printer, spill
+from kmer_counter_tpu_torch.ops import probes
 
 from tests.test_ingest import random_seqs, write_fastq
 
@@ -129,6 +132,12 @@ def test_native_reader_loads_the_repository_library():
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     want = os.path.join(here, "native", "libkmer_io.so")
     assert os.path.abspath(native._LIB_PATHS[0]) == want
+
+
+def test_probe_tile_is_the_pallas_tile():
+    """D1 (docs/probe_compact_overhead.py) compacts pallas_sort.TILE rows
+    a tile; the port keeps the constant as ops.probes.TILE."""
+    assert probes.TILE == pallas_sort.TILE
 
 
 def test_metrics_copy_counts_and_times_the_same():

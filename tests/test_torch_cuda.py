@@ -10,8 +10,9 @@ Its case builders are shared with the CPU tests that hold the plain
 versions against the JAX package (tests/test_torch_merge_fold_compact.py,
 test_torch_merge_runs.py, test_torch_compact_live.py,
 test_torch_lane_sort.py, test_torch_table2.py, test_torch_engine.py,
-test_torch_fused_extract.py) and with chip_smoke.py.  Tolerance: bit-exact equality — everything is
-integer.  The sort and merge_sorted_runs leave the order among equal keys
+test_torch_fused_extract.py, test_torch_probes.py) and with
+chip_smoke.py.  Tolerance: bit-exact equality — everything is integer.
+The sort and merge_sorted_runs leave the order among equal keys
 unspecified, so their payloads are compared as a multiset per key.
 """
 
@@ -1095,3 +1096,218 @@ def test_extract_failed_launch_raises_and_never_falls_back(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="launch failed"):
         fx.extract_chunk_keys_into(reads, 20, False, dst, 0, torch.zeros((), dtype=torch.int64, device=cuda))
     assert fx.launches == before
+
+
+# ---- D1-D7: the probe kernels (ops.probes, csrc/probes.cu) ---------------------
+
+# Output keys a block of pair_merge_kernel; rows a tile of tile_compact_kernel.
+PROBE_MERGE_TILE = 2048
+PROBE_TILE = 65536
+
+
+def probe_keys(rng, shape, ascending=True):
+    """uint32 keys along the last axis: random (half at or above 2^31), with
+    runs of duplicates and a tenth each of 0 and 0xFFFFFFFF; sorted
+    ascending, or not at all."""
+    keys = rng.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32)
+    pick = rng.random(shape)
+    keys[pick < 0.1] = 0
+    keys[(pick >= 0.1) & (pick < 0.2)] = M
+    keys[(pick >= 0.2) & (pick < 0.3)] = np.uint32(0x80000000)
+    keys[(pick >= 0.3) & (pick < 0.4)] = np.uint32(12345)
+    return np.sort(keys, axis=-1) if ascending else keys
+
+
+# (G, Ta, Tb): the probes' shapes (D2, D3, D7), G = 1, empty and tiny sides,
+# lengths that are no multiple of the block's range, one side much longer.
+PROBE_MERGE_SHAPES = [(1, 1024, 1024), (512, 1024, 1024), (1, 65536, 65536), (1, 0, 5), (1, 5, 0), (1, 1, 1),
+                      (3, 2047, 2049), (2, 2048, 2048), (1, 10000, 3), (1, 3, 10000), (7, 4095, 1),
+                      (1, 100000, 70001), (64, 333, 777), (5, 0, 0)]
+
+
+def probe_merge_case(rng, G, ta, tb):
+    """(a [G, ta], b [G, tb]) uint32, both ascending."""
+    return probe_keys(rng, (G, ta)), probe_keys(rng, (G, tb))
+
+
+def probe_tile_case(rng, n_ops, tiles, live):
+    """(ops [n_ops, tiles*TILE] uint32, live [tiles*TILE] uint32): live is a
+    density, or "none", "all", or "edges" (each tile's first and last rows
+    live, and the last row of every 4096); a live flag is any nonzero word."""
+    n = tiles * PROBE_TILE
+    ops = probe_keys(rng, (n_ops, n), ascending=False)
+    flags = rng.integers(1, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    if live == "none":
+        on = np.zeros(n, bool)
+    elif live == "all":
+        on = np.ones(n, bool)
+    elif live == "edges":
+        r = np.arange(n) % PROBE_TILE
+        on = (r == 0) | (r % 4096 == 4095)
+    else:
+        on = rng.random(n) < live
+    return ops, np.where(on, flags, 0).astype(np.uint32)
+
+
+PROBE_TILE_CASES = {"none_live": (3, 2, "none"), "all_live": (3, 2, "all"), "tile_edges_live": (3, 3, "edges"),
+                    "probe_density": (3, 4, 0.03), "one_op": (1, 1, 0.5), "nine_ops": (9, 2, 0.97)}
+
+
+# (R, W, starts, rows, shift): D4, D5, D6, then odd widths and counts,
+# shifts past R either way, windows at both ends of x.
+PROBE_GATHER_CASES = {"d4_roll_3": (16, 128, [0], 16, -3), "d5_roll_minus_3": (16, 128, [0], 16, 3),
+                      "d6_windows": (64, 128, [1, 9, 17, 33], 8, 0), "one_row": (1, 1, [0], 1, 5),
+                      "wide_shift": (7, 3, [0, 2, 4], 3, -20), "ends": (100, 130, [0, 99, 50], 1, 0),
+                      "whole_many": (33, 128, [0] * 9, 33, 40)}
+
+
+def probe_gather_case(rng, R, W):
+    return rng.integers(0, 2**32, (R, W), dtype=np.uint64).astype(np.uint32)
+
+
+def probe_random_shapes(rng, count=20):
+    """count random shapes of each probe kernel: {"pair_merge": [(G, ta, tb)],
+    "tile_compact": [(n_ops, tiles, density)], "row_gather": [(R, W,
+    starts, rows, shift)]}."""
+    merge = [(int(rng.integers(1, 9)), int(rng.integers(0, 9000)), int(rng.integers(0, 9000)))
+             for _ in range(count)]
+    tiles = [(int(rng.integers(1, 10)), int(rng.integers(1, 4)), float(rng.choice([0.0, 0.001, 0.03, 0.5, 1.0])))
+             for _ in range(count)]
+    gather = []
+    for _ in range(count):
+        R = int(rng.integers(1, 300))
+        rows = int(rng.integers(1, R + 1))
+        G = int(rng.integers(1, 12))
+        starts = [int(s) for s in rng.integers(0, R - rows + 1, G)]
+        gather.append((R, int(rng.choice([1, 3, 128, 130])), starts, rows, int(rng.integers(-2 * R, 2 * R + 1))))
+    return {"pair_merge": merge, "tile_compact": tiles, "row_gather": gather}
+
+
+def probe_merge_vs_plain(a, b, device):
+    """pair_merge on the card against its plain version, B in either order;
+    bit-exact and equal to np.sort of each pair."""
+    from kmer_counter_tpu_torch.ops import probes
+
+    want = np.sort(np.concatenate([a, b], axis=1), axis=1)
+    for desc in (False, True):
+        ta, tb = (torch.from_numpy(x.view(np.int32).copy()).to(device) for x in (a, b[:, ::-1] if desc else b))
+        before = probes.launches["pair_merge"]
+        got = probes.pair_merge(ta, tb, b_descending=desc)
+        torch.cuda.synchronize()
+        assert probes.launches["pair_merge"] == before + (1 if got.numel() else 0)
+        plain = probes.pair_merge_reference(ta, tb, b_descending=desc)
+        assert torch.equal(got, plain), f"G={a.shape[0]} ta={a.shape[1]} tb={b.shape[1]} desc={desc}"
+        np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32), want)
+
+
+def probe_tile_vs_plain(ops, live, device):
+    from kmer_counter_tpu_torch.ops import probes
+
+    t_ops = [torch.from_numpy(v.view(np.int32).copy()).to(device) for v in ops]
+    t_live = torch.from_numpy(live.view(np.int32).copy()).to(device)
+    for mode in ("copy", "cumsum", "network"):
+        before = probes.launches["tile_compact"]
+        got = probes.tile_compact(t_ops, t_live, mode)
+        torch.cuda.synchronize()
+        assert probes.launches["tile_compact"] == before + 1
+        assert torch.equal(got, probes.tile_compact_reference(t_ops, t_live, mode)), mode
+
+
+def probe_gather_vs_plain(x, starts, rows, shift, device):
+    from kmer_counter_tpu_torch.ops import probes
+
+    tx = torch.from_numpy(x.view(np.int32).copy()).to(device)
+    ts = torch.tensor(starts, dtype=torch.int32, device=device)
+    before = probes.launches["row_gather"]
+    got = probes.row_gather(tx, ts, rows, shift)
+    torch.cuda.synchronize()
+    assert probes.launches["row_gather"] == before + 1
+    assert torch.equal(got, probes.row_gather_reference(tx, ts, rows, shift))
+    idx = (np.asarray(starts)[:, None] + shift + np.arange(rows)) % x.shape[0]
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32), x[idx])
+
+
+@pytest.mark.gpu
+def test_probe_tile_matches_case_tile(cuda):
+    from kmer_counter_tpu_torch.ops import probes
+
+    assert probes.kernel_tile() == probes.TILE == PROBE_TILE
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", PROBE_MERGE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_probe_pair_merge_kernel(cuda, shape):
+    probe_merge_vs_plain(*probe_merge_case(np.random.default_rng(sum(shape)), *shape), cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(PROBE_TILE_CASES))
+def test_probe_tile_compact_kernel(cuda, name):
+    probe_tile_vs_plain(*probe_tile_case(np.random.default_rng(0), *PROBE_TILE_CASES[name]), cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(PROBE_GATHER_CASES))
+def test_probe_row_gather_kernel(cuda, name):
+    R, W, starts, rows, shift = PROBE_GATHER_CASES[name]
+    probe_gather_vs_plain(probe_gather_case(np.random.default_rng(0), R, W), starts, rows, shift, cuda)
+
+
+@pytest.mark.gpu
+def test_probe_kernels_random_shapes(cuda):
+    rng = np.random.default_rng(11)
+    shapes = probe_random_shapes(rng)
+    for G, ta, tb in shapes["pair_merge"]:
+        probe_merge_vs_plain(*probe_merge_case(rng, G, ta, tb), cuda)
+    for n_ops, tiles, density in shapes["tile_compact"]:
+        probe_tile_vs_plain(*probe_tile_case(rng, n_ops, tiles, density), cuda)
+    for R, W, starts, rows, shift in shapes["row_gather"]:
+        probe_gather_vs_plain(probe_gather_case(rng, R, W), starts, rows, shift, cuda)
+
+
+@pytest.mark.gpu
+def test_probe_harnesses_on_cuda(cuda, capsys):
+    from kmer_counter_tpu_torch.probes import experiments_bitonic_merge, experiments_mosaic_caps
+    from kmer_counter_tpu_torch.probes import probe_compact_overhead
+
+    experiments_mosaic_caps.main(cuda, reps=3)
+    experiments_bitonic_merge.main(cuda, reps=3)
+    probe_compact_overhead.main(cuda, n_tiles=8, chain=2, reps=1)
+    out = capsys.readouterr().out
+    assert out.count(": OK correct") == 4 and "merge correct: True" in out and out.count(", correct") == 4
+
+
+@pytest.mark.gpu
+def test_probe_failed_launch_raises_and_never_falls_back(cuda, monkeypatch):
+    from kmer_counter_tpu_torch.ops import probes
+
+    lib = probes._lib()
+    x = torch.zeros((PROBE_TILE,), dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = probes.ptr_array([x])
+    # no rows, a row count off the tile, a mode past network, a misaligned lane
+    assert lib.pr_tile_compact(ptrs, ptrs, 1, x.data_ptr(), PROBE_TILE - 1, 0, stream) != 0
+    assert lib.pr_tile_compact(ptrs, ptrs, 1, x.data_ptr(), PROBE_TILE, 3, stream) != 0
+    assert lib.pr_tile_compact(ptrs, ptrs, 1, x.data_ptr() + 4, PROBE_TILE, 0, stream) != 0
+    assert lib.pr_pair_merge(x.data_ptr(), x.data_ptr(), x.data_ptr(), 0, 1, 1, 0, stream) != 0
+    assert lib.pr_row_gather(x.data_ptr(), x.data_ptr(), x.data_ptr(), 0, 1, 1, 1, 0, stream) != 0
+
+    class Refusing:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        @staticmethod
+        def pr_pair_merge(*args):
+            return 9  # cudaErrorInvalidConfiguration
+
+        pr_tile_compact = pr_row_gather = pr_pair_merge
+
+    monkeypatch.setattr(probes, "_lib", Refusing)
+    before = dict(probes.launches)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        probes.pair_merge(x.view(1, -1), x.view(1, -1), b_descending=True)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        probes.tile_compact([x], x, "copy")
+    with pytest.raises(RuntimeError, match="launch failed"):
+        probes.row_gather(x.view(-1, 128), x[:1], 1, 0)
+    assert probes.launches == before

@@ -39,6 +39,7 @@ PORT_MODULES = [
     "kmer_counter_tpu_torch.ops.merge_fold_compact",
     "kmer_counter_tpu_torch.ops.merge_runs",
     "kmer_counter_tpu_torch.ops.pipeline",
+    "kmer_counter_tpu_torch.ops.probes",
     "kmer_counter_tpu_torch.ops.sortcount",
     "kmer_counter_tpu_torch.ops.table",
     "kmer_counter_tpu_torch.ops.table2",
@@ -47,6 +48,10 @@ PORT_MODULES = [
     "kmer_counter_tpu_torch.parallel.mesh",
     "kmer_counter_tpu_torch.parallel.pipeline",
     "kmer_counter_tpu_torch.parallel.shuffle",
+    "kmer_counter_tpu_torch.probes",
+    "kmer_counter_tpu_torch.probes.experiments_bitonic_merge",
+    "kmer_counter_tpu_torch.probes.experiments_mosaic_caps",
+    "kmer_counter_tpu_torch.probes.probe_compact_overhead",
     "kmer_counter_tpu_torch.records",
 ]
 

@@ -1,0 +1,482 @@
+"""D1-D7, the Mosaic probes under docs/ (ops.probes and the probe
+harnesses), on the CPU.
+
+- The plain versions against the Pallas functions they replace, run in
+  interpret mode on the same seeded operands: D1's three bodies from
+  docs/probe_compact_overhead.py, loaded by path at one tile and, for the
+  network body, at two (nothing crosses a tile); D2, D3 (G = 4), D4-D6
+  (``q1``-``q3``, called whole) and D7's merge kernel (R = 4 and R = 512),
+  their functions taken from the parsed sources of
+  docs/experiments_bitonic_merge.py and docs/experiments_mosaic_caps.py
+  (which run their probes at import) with ``pl.pallas_call`` wrapped to
+  add ``interpret=True`` and record each call's operands and result.
+  Nothing under docs/ changes.
+- The plain versions against NumPy over many seeded shapes, and models of
+  the CUDA kernels' arithmetic (csrc/probes.cu: the merge-path split of
+  blocks and threads, the chunked block scan with its carry, C's
+  remainder for the rows) against the plain versions.  The CUDA kernels
+  run only on the card (tests/test_torch_cuda.py, chip_smoke.py).
+- The three harnesses' ``main(device=cpu)`` at reduced sizes, and the
+  wrappers' checks.
+
+Tolerance: exact equality; everything is integer.
+"""
+
+import ast
+import importlib.util
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from kmer_counter_tpu_torch.ops import probes
+from kmer_counter_tpu_torch.ops.u32 import from_numpy, to_numpy
+from kmer_counter_tpu_torch.probes import ProbeFailed, experiments_bitonic_merge, experiments_mosaic_caps
+from kmer_counter_tpu_torch.probes import probe_compact_overhead
+
+from tests.test_torch_cuda import (PROBE_GATHER_CASES, PROBE_MERGE_TILE, PROBE_TILE, PROBE_TILE_CASES,
+                                   probe_gather_case, probe_keys, probe_merge_case, probe_tile_case)
+
+CPU = torch.device("cpu")
+DOCS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "docs")
+M = 0xFFFFFFFF
+
+
+def t32(a: np.ndarray) -> torch.Tensor:
+    return from_numpy(a, CPU)
+
+
+# ---- the Pallas functions in interpret mode ---------------------------------
+
+
+class RecordingPallas:
+    """``pl`` with ``pallas_call`` run in interpret mode; each call's
+    operands and result are kept in ``calls`` as NumPy arrays."""
+
+    def __init__(self):
+        self.calls = []
+
+    def pallas_call(self, kernel, **kw):
+        call = pl.pallas_call(kernel, interpret=True, **kw)
+
+        def run(*ops):
+            out = call(*ops)
+            self.calls.append(([np.asarray(v) for v in ops], np.asarray(out)))
+            return out
+
+        return run
+
+    def __getattr__(self, name):
+        return getattr(pl, name)
+
+
+class EagerJax:
+    """``jax`` with ``jit`` a no-op, so that the recorder sees values."""
+
+    @staticmethod
+    def jit(fn):
+        return fn
+
+    def __getattr__(self, name):
+        return getattr(jax, name)
+
+
+def probe_namespace(script: str, names: set, **values) -> tuple[dict, RecordingPallas]:
+    """The named top-level functions and assignments of docs/<script>,
+    executed in a namespace of their own (the script itself runs its probes
+    at import), then ``values`` set in it."""
+    path = os.path.join(DOCS, script)
+    tree = ast.parse(open(path).read())
+    body = [node for node in tree.body
+            if (isinstance(node, ast.FunctionDef) and node.name in names)
+            or (isinstance(node, ast.Assign) and any(getattr(t, "id", None) in names for t in node.targets))]
+    assert {getattr(n, "name", None) or n.targets[0].id for n in body} == names
+    rec = RecordingPallas()
+    ns = {"jax": EagerJax(), "jnp": jnp, "np": np, "pl": rec, "pltpu": pltpu}
+    exec(compile(ast.Module(body=body, type_ignores=[]), path, "exec"), ns)
+    ns.update(values)
+    return ns, rec
+
+
+def load_d1(monkeypatch, tiles: int):
+    """docs/probe_compact_overhead.py loaded by path in interpret mode at
+    ``tiles`` tiles; the JAX compilation-cache setting it makes is undone."""
+    monkeypatch.setenv("PROBE_INTERPRET", "1")
+    monkeypatch.setenv("PROBE_TILES", str(tiles))
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "")
+    spec = importlib.util.spec_from_file_location("probe_compact_overhead",
+                                                  os.path.join(DOCS, "probe_compact_overhead.py"))
+    module = importlib.util.module_from_spec(spec)
+    old = jax.config.jax_compilation_cache_dir
+    try:
+        spec.loader.exec_module(module)
+    finally:
+        jax.config.update("jax_compilation_cache_dir", old)
+    assert module.TILE == probes.TILE and module.N == tiles * probes.TILE
+    return module
+
+
+def d1_operands(tiles: int, seed: int):
+    """3 operands and a live flag at ~3% with a live row at the last index of
+    every tile, and the first row of the second tile live."""
+    rng = np.random.default_rng(seed)
+    n = tiles * PROBE_TILE
+    ops = probe_keys(rng, (3, n), ascending=False)
+    live = np.where(rng.random(n) < 0.03, rng.integers(1, 2**32, n, dtype=np.uint64), 0).astype(np.uint32)
+    live[PROBE_TILE - 1 :: PROBE_TILE] = 0x80000000
+    if tiles > 1:
+        live[PROBE_TILE] = 1
+    return ops, live
+
+
+@pytest.mark.parametrize("mode,tiles", [("copy", 1), ("cumsum", 1), ("network", 1), ("network", 2)])
+def test_d1_plain_matches_pallas_interpret(monkeypatch, mode, tiles):
+    module = load_d1(monkeypatch, tiles)
+    ops, live = d1_operands(tiles, seed=tiles)
+    want = np.stack([np.asarray(v).reshape(-1) for v in
+                     module.VARIANTS[mode]()(*[jnp.asarray(v) for v in ops], jnp.asarray(live))])
+    got = to_numpy(probes.tile_compact([t32(v) for v in ops], t32(live), mode))
+    np.testing.assert_array_equal(got, want)
+    if mode == "network":
+        # each tile's live rows at its front: nothing crossed a tile
+        alive = (live != 0).reshape(tiles, -1)
+        for t in range(tiles):
+            k = int(alive[t].sum())
+            tile = want[:, t * PROBE_TILE : (t + 1) * PROBE_TILE]
+            np.testing.assert_array_equal(tile[:, :k], ops[:, t * PROBE_TILE : (t + 1) * PROBE_TILE][:, alive[t]])
+            assert not tile[:, k:].any()
+
+
+BITONIC = {"T", "_merge_block", "merge_kernel", "merge", "merge_kernel_g", "merge_many"}
+
+
+def _d2_operands(case):
+    rng = np.random.default_rng(0)
+    if case == "probe":  # the probe's own draws
+        return tuple(np.sort(rng.integers(0, 2**32, 1024, dtype=np.uint64).astype(np.uint32)) for _ in range(2))
+    return probe_keys(rng, 1024), probe_keys(rng, 1024)  # 0, 0xFFFFFFFF, 2^31 and runs of duplicates
+
+
+@pytest.mark.parametrize("case", ["probe", "extremes_and_duplicates"])
+def test_d2_plain_matches_pallas_interpret(case):
+    ns, rec = probe_namespace("experiments_bitonic_merge.py", BITONIC)
+    a, b = _d2_operands(case)
+    ns["merge"](jnp.asarray(a.reshape(8, 128)), jnp.asarray(b[::-1].copy().reshape(8, 128)))
+    (a_op, b_op), want = rec.calls[-1]
+    got = experiments_bitonic_merge.merge(t32(a_op), t32(b_op))
+    np.testing.assert_array_equal(to_numpy(got), want)
+    np.testing.assert_array_equal(want.reshape(-1), np.sort(np.concatenate([a, b])))
+
+
+def test_d3_plain_matches_pallas_interpret():
+    G = 4
+    ns, rec = probe_namespace("experiments_bitonic_merge.py", BITONIC, G=G)
+    rng = np.random.default_rng(1)
+    A, B = probe_keys(rng, (G, 1024)), probe_keys(rng, (G, 1024))
+    ns["merge_many"](jnp.asarray(A), jnp.asarray(B))
+    (a_op, b_op), want = rec.calls[-1]
+    assert a_op.shape == b_op.shape == (G, 8, 128) and want.shape == (G, 16, 128)
+    got = experiments_bitonic_merge.merge_many(t32(a_op), t32(b_op))
+    np.testing.assert_array_equal(to_numpy(got), want)
+    np.testing.assert_array_equal(want.reshape(G, -1), np.sort(np.concatenate([A, B], 1), 1))
+
+
+CAPS = {"q1", "q2", "q3"}
+
+
+def test_d4_d5_d6_plain_match_pallas_interpret():
+    ns, rec = probe_namespace("experiments_mosaic_caps.py", CAPS, rng=np.random.default_rng(0))
+    for q in ("q1", "q2", "q3"):
+        assert ns[q]() == "correct"
+    (x1,), want1 = rec.calls[0]
+    (x2,), want2 = rec.calls[1]
+    (starts, x3), want3 = rec.calls[2]
+    np.testing.assert_array_equal(to_numpy(experiments_mosaic_caps.roll_rows(t32(x1), -3)), want1)
+    np.testing.assert_array_equal(to_numpy(experiments_mosaic_caps.roll_rows(t32(x2), 3)), want2)
+    got3 = probes.row_gather(t32(x3), torch.from_numpy(starts.copy()), 8, 0)
+    np.testing.assert_array_equal(to_numpy(got3), want3)
+    assert tuple(starts) == experiments_mosaic_caps.STARTS
+
+
+MERGE_NETWORK = {"R", "_partner_down", "_partner_up", "_flat_iota", "_ce", "_shift_mask_up", "merge_kernel"}
+
+
+@pytest.mark.parametrize("R", [4, 512])
+def test_d7_plain_matches_pallas_interpret(R):
+    ns, rec = probe_namespace("experiments_mosaic_caps.py", MERGE_NETWORK, R=R)
+    rng = np.random.default_rng(R)
+    a, b = probe_keys(rng, R * 128), probe_keys(rng, R * 128)
+    # q4's call (docs/experiments_mosaic_caps.py:200-209), without its timing loop
+    rec.pallas_call(ns["merge_kernel"], out_shape=jax.ShapeDtypeStruct((2 * R, 128), jnp.uint32),
+                    in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM), pl.BlockSpec(memory_space=pltpu.VMEM)],
+                    out_specs=pl.BlockSpec(memory_space=pltpu.VMEM))(jnp.asarray(a.reshape(R, 128)),
+                                                                     jnp.asarray(b.reshape(R, 128)))
+    (a_op, b_op), want = rec.calls[-1]
+    got = probes.pair_merge(t32(a_op.reshape(1, -1)), t32(b_op.reshape(1, -1)), b_descending=False)
+    np.testing.assert_array_equal(to_numpy(got).reshape(2 * R, 128), want)
+    np.testing.assert_array_equal(want.reshape(-1), np.sort(np.concatenate([a, b])))
+
+
+# ---- the plain versions against NumPy ---------------------------------------
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_plain_pair_merge_matches_numpy(seed):
+    rng = np.random.default_rng(seed)
+    for _ in range(8):
+        G, ta, tb = int(rng.integers(1, 6)), int(rng.integers(0, 3000)), int(rng.integers(0, 3000))
+        a, b = probe_merge_case(rng, G, ta, tb)
+        want = np.sort(np.concatenate([a, b], 1), 1)
+        for desc in (False, True):
+            got = probes.pair_merge(t32(a), t32(b[:, ::-1] if desc else b), b_descending=desc)
+            np.testing.assert_array_equal(to_numpy(got), want)
+
+
+def numpy_tile_compact(ops: np.ndarray, live: np.ndarray, mode: str) -> np.ndarray:
+    """D1 a tile at a time, a row at a time in the tile's order."""
+    out = np.zeros_like(ops)
+    for t0 in range(0, live.size, PROBE_TILE):
+        rows = range(t0, t0 + PROBE_TILE)
+        if mode == "copy":
+            out[:, rows] = ops[:, rows]
+        elif mode == "cumsum":
+            dead = np.concatenate([[0], np.cumsum(live[rows] == 0)[:-1]]).astype(np.uint32)
+            out[:, rows] = ops[:, rows] + dead
+        else:
+            keep = np.flatnonzero(live[rows]) + t0
+            out[:, t0 : t0 + keep.size] = ops[:, keep]
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(PROBE_TILE_CASES))
+def test_plain_tile_compact_matches_numpy(name):
+    ops, live = probe_tile_case(np.random.default_rng(5), *PROBE_TILE_CASES[name])
+    for mode in probes.MODES:
+        got = probes.tile_compact([t32(v) for v in ops], t32(live), mode)
+        np.testing.assert_array_equal(to_numpy(got), numpy_tile_compact(ops, live, mode), mode)
+
+
+def test_plain_cumsum_wraps_mod_2_32():
+    ops = np.full((1, PROBE_TILE), M - 2, np.uint32)
+    got = to_numpy(probes.tile_compact([t32(ops[0])], t32(np.zeros(PROBE_TILE, np.uint32)), "cumsum"))
+    np.testing.assert_array_equal(got[0, :5], [M - 2, M - 1, M, 0, 1])
+
+
+@pytest.mark.parametrize("name", sorted(PROBE_GATHER_CASES))
+def test_plain_row_gather_matches_numpy(name):
+    R, W, starts, rows, shift = PROBE_GATHER_CASES[name]
+    x = probe_gather_case(np.random.default_rng(2), R, W)
+    got = probes.row_gather(t32(x), torch.tensor(starts, dtype=torch.int32), rows, shift)
+    want = np.stack([np.roll(x, -(s + shift), 0)[:rows] for s in starts])
+    np.testing.assert_array_equal(to_numpy(got), want)
+
+
+def test_plain_row_gather_raises_on_a_window_outside_x():
+    x = t32(np.zeros((16, 4), np.uint32))
+    for starts, rows in (([9], 8), ([-1], 8), ([0, 17], 1)):
+        with pytest.raises(ValueError, match="inside x"):
+            probes.row_gather(x, torch.tensor(starts, dtype=torch.int32), rows, 0)
+
+
+# ---- models of the CUDA kernels' arithmetic ------------------------------------
+
+
+def merge_path_split(d, la, lb, a_le_b):
+    """lanes.cuh merge_path_split."""
+    lo, hi = max(d - lb, 0), min(d, la)
+    while lo < hi:
+        mid = (lo + hi) >> 1
+        if a_le_b(mid, d - 1 - mid):
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def model_pair_merge(a, b_stored, b_desc, threads=PROBE_MERGE_TILE // 8, items=8):
+    """pair_merge_kernel: blocks of threads*items diagonals of one pair, the
+    block's ranges staged, each thread merging from its own split."""
+    G, ta = a.shape
+    tb = b_stored.shape[1]
+    n, tile = ta + tb, threads * items
+    tiles = -(-n // tile)
+    out = np.zeros((G, n), np.uint32)
+    for blk in range(G * tiles):
+        g = blk // tiles
+        d0 = (blk - g * tiles) * tile
+        d1 = min(d0 + tile, n)
+        pa, pb = a[g].tolist(), b_stored[g].tolist()
+
+        def b_at(j):
+            return pb[tb - 1 - j] if b_desc else pb[j]
+
+        a0, a1 = (merge_path_split(d, ta, tb, lambda i, j: pa[i] <= b_at(j)) for d in (d0, d1))
+        la = a1 - a0
+        lb = d1 - d0 - la
+        s_a, s_b = pa[a0 : a0 + la], [b_at(d0 - a0 + j) for j in range(lb)]
+        s_out = [None] * (la + lb)
+        for t in range(threads):
+            t0 = t * items
+            if t0 >= la + lb:
+                break
+            ia = merge_path_split(t0, la, lb, lambda i, j: s_a[i] <= s_b[j])
+            ib = t0 - ia
+            for q in range(min(items, la + lb - t0)):
+                if ib >= lb or (ia < la and s_a[ia] <= s_b[ib]):
+                    s_out[t0 + q], ia = s_a[ia], ia + 1
+                else:
+                    s_out[t0 + q], ib = s_b[ib], ib + 1
+        out[g, d0:d1] = s_out
+    return out
+
+
+@pytest.mark.parametrize("shape", [(1, 1024, 1024), (3, 2047, 2049), (1, 5000, 17), (2, 0, 3000), (1, 4096, 4096)])
+def test_model_of_pair_merge_kernel_matches_plain(shape):
+    a, b = probe_merge_case(np.random.default_rng(sum(shape)), *shape)
+    for desc in (False, True):
+        b_stored = np.ascontiguousarray(b[:, ::-1]) if desc else b
+        want = to_numpy(probes.pair_merge(t32(a), t32(b_stored), b_descending=desc))
+        np.testing.assert_array_equal(model_pair_merge(a, b_stored, desc), want)
+
+
+def model_tile_compact(ops, live, mode, threads=1024):
+    """tile_compact_kernel's cumsum and network: a tile in chunks of 4 rows
+    a thread, each thread's count scanned across the block, the chunk's
+    total carried to the next; network lists a chunk's live rows by rank
+    (shared memory) and copies them a rank a thread."""
+    out = np.zeros_like(ops)
+    chunk = 4 * threads
+    for base in range(0, live.size, PROBE_TILE):
+        carry = 0
+        for c in range(0, PROBE_TILE, chunk):
+            rows = base + c + np.arange(chunk)
+            on = (live[rows] == 0) if mode == "cumsum" else (live[rows] != 0)
+            mine = on.reshape(threads, 4).sum(1)
+            before = carry + np.concatenate([[0], np.cumsum(mine)[:-1]])
+            within = np.cumsum(on.reshape(threads, 4), 1) - on.reshape(threads, 4)  # before it in its thread
+            k = (before[:, None] + within).reshape(-1)
+            total = int(mine.sum())
+            if mode == "cumsum":
+                out[:, rows] = ops[:, rows] + k.astype(np.uint32)
+            else:  # the chunk's live rows listed by rank, then a thread a rank
+                s_rows = np.zeros(total, int)
+                s_rows[k[on] - carry] = rows[on] - base
+                out[:, base + carry + np.arange(total)] = ops[:, base + s_rows]
+            carry += total
+        if mode == "network":
+            out[:, base + carry : base + PROBE_TILE] = 0
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(PROBE_TILE_CASES))
+def test_model_of_tile_compact_kernel_matches_plain(name):
+    ops, live = probe_tile_case(np.random.default_rng(7), *PROBE_TILE_CASES[name])
+    for mode in ("cumsum", "network"):
+        want = to_numpy(probes.tile_compact([t32(v) for v in ops], t32(live), mode))
+        np.testing.assert_array_equal(model_tile_compact(ops, live, mode), want, mode)
+
+
+@pytest.mark.parametrize("name", sorted(PROBE_GATHER_CASES))
+def test_model_of_row_gather_kernel_matches_plain(name):
+    """row_gather_kernel's source row: C's remainder (the sign of the
+    dividend) of the shift by R on the host and of the start by R on the
+    device, their sum with j brought into [0, R) by two additions or
+    subtractions of R; also at starts outside the contract, where the
+    kernel still reads inside x."""
+    R, W, starts, rows, shift = PROBE_GATHER_CASES[name]
+    x = probe_gather_case(np.random.default_rng(3), R, W)
+
+    def source_rows(starts):
+        v = np.fmod(np.asarray(starts, np.int64), R)[:, None] + np.fmod(shift, R) + np.arange(rows)
+        for _ in range(2):
+            v = np.where(v < 0, v + R, v)
+        for _ in range(2):
+            v = np.where(v >= R, v - R, v)
+        return v
+
+    want = to_numpy(probes.row_gather(t32(x), torch.tensor(starts, dtype=torch.int32), rows, shift))
+    np.testing.assert_array_equal(x[source_rows(starts)], want)
+    wild = [2**31 - 1, -(2**31), -1, R + 5]
+    np.testing.assert_array_equal(source_rows(wild), (np.asarray(wild)[:, None] + shift + np.arange(rows)) % R)
+
+
+# ---- the harnesses on the CPU --------------------------------------------------
+
+
+def test_mosaic_caps_harness_on_cpu(capsys):
+    results = experiments_mosaic_caps.main(CPU, r=4, reps=2)
+    assert list(results) == ["Q1 roll axis0", "Q2 unaligned row slice+concat", "Q3 dyn DMA + scalar prefetch",
+                             "Q4 odd-even merge 2x64K"]
+    out = capsys.readouterr().out
+    assert out.count(": OK correct") == 4
+
+
+def test_bitonic_merge_harness_on_cpu(capsys):
+    results = experiments_bitonic_merge.main(CPU, g=4, reps=2)
+    assert results["grid_ms"] > 0
+    out = capsys.readouterr().out
+    assert "merge correct: True" in out and "grid merge correct: True" in out and "records ->" in out
+
+
+def test_compact_overhead_harness_on_cpu(capsys):
+    results = probe_compact_overhead.main(CPU, n_tiles=2, chain=2, reps=2)
+    assert list(results) == list(probe_compact_overhead.VARIANTS)
+    assert all(len(r["times_ms"]) == 2 for r in results.values())
+    out = capsys.readouterr().out
+    assert out.count(", correct") == 4 and out.count("ms/call x2") == 4
+
+
+def test_harness_raises_on_a_wrong_result(monkeypatch):
+    real = probes.row_gather
+
+    def off_by_one(x, starts, rows, shift):
+        return real(x, starts, rows, shift + 1)
+
+    monkeypatch.setattr(probes, "row_gather", off_by_one)
+    with pytest.raises(ProbeFailed, match="Q1: WRONG VALUES"):
+        experiments_mosaic_caps.main(CPU, r=4, reps=1)
+
+
+def test_harness_main_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU")
+    with pytest.raises((RuntimeError, AssertionError)):
+        experiments_mosaic_caps.main()
+
+
+# ---- the wrappers' checks ------------------------------------------------------
+
+
+def test_wrappers_have_no_fallback_for_other_devices():
+    meta = torch.zeros((1, PROBE_TILE), dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        probes.pair_merge(meta, meta, b_descending=True)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        probes.row_gather(meta, meta[0, :1], 1, 0)
+
+
+def test_tile_compact_refuses_what_the_kernel_does_not_take():
+    x = torch.zeros(2 * PROBE_TILE, dtype=torch.int32)
+    with pytest.raises(ValueError, match="multiple of TILE"):
+        probes.tile_compact([x[:PROBE_TILE + 4]], x[:PROBE_TILE + 4], "copy")
+    with pytest.raises(ValueError, match="16-byte"):
+        probes.tile_compact([x[1 : PROBE_TILE + 1]], x[:PROBE_TILE], "copy")
+    with pytest.raises(ValueError, match="mode"):
+        probes.tile_compact([x], x, "full")
+    with pytest.raises(ValueError, match="1 to 9"):
+        probes.tile_compact([x] * 10, x, "copy")
+    with pytest.raises(TypeError, match="int32"):
+        probes.tile_compact([x.to(torch.int64)], x, "copy")
+
+
+def test_pair_merge_and_row_gather_refuse_bad_shapes():
+    with pytest.raises(ValueError, match=r"\[G, Ta\]"):
+        probes.pair_merge(torch.zeros((2, 3), dtype=torch.int32), torch.zeros((3, 3), dtype=torch.int32),
+                          b_descending=False)
+    with pytest.raises(ValueError, match="rows"):
+        probes.row_gather(torch.zeros((4, 2), dtype=torch.int32), torch.zeros(1, dtype=torch.int32), 5, 0)
