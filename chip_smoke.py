@@ -1963,7 +1963,7 @@ def phase_profile_flag(tmp):
 # into the raw region), as its launch_shapes log it: (R, L, k, canonical, mode).
 MAIN_K8_LAUNCH = (396_825, MAIN_L, MAIN_K, True, "keys")
 # Reads a random K8 shape takes, and (R, L) of reads that K8 cuts along the
-# row: longer than three of its tiles (4096 window starts a block).
+# row: longer than three of its tiles (3952 window starts a block).
 K8_RANDOM_READS = 20_000
 K8_LONG = (4, 3 * 4096 + 5)
 
@@ -2090,7 +2090,8 @@ def phase_k8_kernel(device, cases, shapes_by_path):
     """K8 vs plain: k8_random_shapes, the edge cases of tests/test_torch_cuda.py
     (EXTRACT_CASES: lower case, N, zero-padded rows, all-T reads, raw_off,
     R = 1, R one past the tile, reads longer than the tile, misaligned
-    reads) in both modes, and each (R, L, k, canonical, mode) that a path
+    reads, blocks that begin in a read's tail or start no window, reads
+    just below and at the tile, keys at each column mod 4) in both modes, and each (R, L, k, canonical, mode) that a path
     launched, on reads sampled as that path samples them.  Returns
     per_path_totals's dict."""
     import numpy as np

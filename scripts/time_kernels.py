@@ -5,7 +5,7 @@ sort, K1 and K3 at about 8M and 32M rows, K2 at about 8M rows a third
 live, K4 and K5 at about 8M rows, K8 at each k of its random shapes),
 K1 and K3-K5 at the main path's largest launch shape on operands shaped as
 that path gives them (MAIN_LAUNCH) and on the 80%-live mix of earlier
-runs, K8 at the main path's chunk (chip_smoke.MAIN_K8_LAUNCH), its checks
+runs, K8 at each of its launch shapes on the paths (K8_PATH_LAUNCHES), its checks
 against the plain versions, its CUDA-event timing in turns and its traced
 device time per CUDA kernel; and ``chunk_step``, the two-level chunk step
 (ops.pipeline.count_step_two_level) at the main path's chunk, whatever
@@ -43,6 +43,14 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # B's live rows, B's live rows with the sentinel key); K1 writes na columns
 # there (the prefix's).
 MAIN_LAUNCH = (2, 166_666_500, 97_222_223, 4_599_964, 55_555_500, 21_626_652)
+# K8's distinct launches on chip_smoke.py's paths, as their launch_shapes
+# log them, (R, L, k, canonical, mode) under a path that makes each: a
+# chunk of the main count (keys two-level, records one-level), a position's
+# chunk on the mesh (and a chunk of the spill paths), a position's chunk of
+# mesh_spill.
+K8_PATH_LAUNCHES = {"main": (396_825, 100, 31, True, "keys"), "main_one": (396_825, 100, 31, True, "records"),
+                    "mesh": (99_206, 100, 31, True, "keys"), "mesh_one": (99_206, 100, 31, True, "records"),
+                    "mesh_spill": (24_801, 100, 31, True, "keys")}
 
 
 def main():
@@ -79,10 +87,10 @@ def main():
             cs.phase_probes(device, cases)
         elif name == cs.K8["name"]:
             cs.k8_random_shapes(device, cases)
-            R, L, k, canonical, mode = cs.MAIN_K8_LAUNCH
-            t = cs.compare_k8(cs.path_reads("main", R, L, device), k, canonical, mode, time_it=True)
-            cs.log({"phase": "kernel", "kernel": name, "path": "main", "main_path_launch_shape": True, "R": R,
-                    "L": L, "k": k, "canonical": canonical, "mode": mode, "bit_exact": True, **t})
+            for path, (R, L, k, canonical, mode) in K8_PATH_LAUNCHES.items():
+                t = cs.compare_k8(cs.path_reads(path, R, L, device), k, canonical, mode, time_it=True)
+                cs.log({"phase": "kernel", "kernel": name, "path": path, "main_path_launch_shape": True, "R": R,
+                        "L": L, "k": k, "canonical": canonical, "mode": mode, "bit_exact": True, **t})
         elif name == cs.SORT["name"]:
             cs.sort_random_shapes(device, cases, gen)
         elif name == cs.K2["name"]:

@@ -252,8 +252,9 @@ def operands(case, device):
 
 
 # Window starts (read bytes) per block of the extraction kernel K8
-# (csrc/fused_extract.cu).
-EXTRACT_TILE = 4096
+# (csrc/fused_extract.cu): 256 threads stage 16 bytes each, the tile, a
+# 128-base halo and 16 bytes of alignment.
+EXTRACT_TILE = 3952
 # K8's k at random (each at L = k, k+1, 100, 151): every lane count, full
 # and partial last lanes.
 EXTRACT_KS = [1, 15, 16, 31, 32, 33, 55, 64, 65, 101, 127, 128]
@@ -304,12 +305,33 @@ EXTRACT_CASES = {
     "raw_off_allt": lambda rng: _extract_case(extract_reads(rng, 500, 100), 32, False, off=999_999),
     "r_1": lambda rng: _extract_case(extract_reads(rng, 1, 151), 101, True),
     "r_one_past_the_tile": lambda rng: _extract_case(extract_reads(rng, EXTRACT_TILE // 100 + 1, 100), 31, True),
-    "tile_of_reads_exactly": lambda rng: _extract_case(extract_reads(rng, EXTRACT_TILE // 64, 64), 64, False),
+    # 52 reads of 76 bases: one tile exactly
+    "tile_of_reads_exactly": lambda rng: _extract_case(extract_reads(rng, EXTRACT_TILE // 76, 76), 64, False),
     "long_reads_row_tiled": lambda rng: _extract_case(extract_reads(rng, 3, 3 * EXTRACT_TILE + 5), 127, True),
     "l_equals_k": lambda rng: _extract_case(extract_reads(rng, 5000, 64), 64, True),
     **{f"misaligned_{s}": (lambda rng, s=s: _extract_case(extract_reads(rng, 700, 100), 33, s % 2 == 1, start=s))
        for s in (1, 7, 15)},
+    # blocks whose range begins inside a read's last k-1 bases (their first
+    # window is the next read's), and a last block that starts no window
+    "blocks_begin_in_tails": lambda rng: _extract_case(extract_reads(rng, 2000, 151), 101, True),
+    "last_block_without_a_window": lambda rng: _extract_case(extract_reads(rng, _ends_in_a_tail(100, 31), 100), 31,
+                                                             True),
+    # the row by the multiplier at the longest read below the tile, by a compare at the tile
+    "l_below_the_tile": lambda rng: _extract_case(extract_reads(rng, 7, EXTRACT_TILE - 1), 31, True),
+    "l_at_the_tile": lambda rng: _extract_case(extract_reads(rng, 5, EXTRACT_TILE), 64, False),
+    # keys at a column 0..3 mod 4 on every lane: R makes the region's width
+    # (off + n + 5, as extract_vs_plain and chip_smoke.compare_k8 allocate
+    # it) a multiple of 4, so each lane's row starts at the same column mod 4
+    **{f"dst_column_mod4_{r}": (lambda rng, r=r: _extract_case(extract_reads(rng, 1000 + (3 - r) % 4, 100), 32,
+                                                                r % 2 == 0, off=400_000 + r))
+       for r in range(4)},
 }
+
+
+def _ends_in_a_tail(L, k):
+    """Reads R, about 1000, whose R*L bytes end 1..k-1 bytes past a
+    multiple of the tile: the last block begins in the last read's tail."""
+    return next(R for R in range(1000, 1000 + EXTRACT_TILE) if 0 < R * L % EXTRACT_TILE < k)
 
 
 def extract_reads_on(reads, device, start=0):
@@ -1053,6 +1075,9 @@ def test_extract_tile_bases(cuda):
 def test_extract_kernel_cases(cuda, name):
     case = EXTRACT_CASES[name](np.random.default_rng(0))
     reads = extract_reads_on(case["reads"], cuda, case["start"])
+    if name.startswith("dst_column_mod4"):
+        R, L = case["reads"].shape
+        assert (case["off"] + R * (L - case["k"] + 1) + 5) % 4 == 0 and case["off"] % 4 == int(name[-1])
     allt = extract_vs_plain(reads, case["k"], case["canonical"], case["off"])
     if name.startswith("all_t") or name == "raw_off_allt":
         assert allt > 0

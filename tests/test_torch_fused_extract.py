@@ -6,14 +6,19 @@
   the Pallas records masked by their validity plane, all-T windows moved
   to the side count.
 - A NumPy model of the CUDA kernel's algorithm (csrc/fused_extract.cu)
-  against the plain version, at every k from 1 to 128, in both modes: the
-  staging of a block's bytes at the misalignment of the reads' pointer,
-  the encoding into code words and invalid-flag words, the 16-base groups
-  from two code words by a funnel shift, the reverse complement by bit
-  reversal, the validity from the count of invalid bases in the window,
-  the row tiled by byte range with its halo, and the writes at a column
-  offset into a larger region.  The CUDA kernel itself runs only on the
-  card (tests/test_torch_cuda.py, chip_smoke.py).
+  against the plain version, at every k from 1 to 128, in both modes, at
+  every pointer alignment, at a small tile and at the kernel's own: the
+  staging of a block's bytes a 16-byte chunk a thread at the misalignment
+  of the reads' pointer, the four-bytes-at-a-time encode into code words,
+  reverse-complemented code words and 32-bit invalid-flag words, the
+  enumeration of the windows that start in a block's range (the window's
+  row by the host's multiplier, or by a compare for reads longer than the
+  tile), the lanes from two words by one funnel shift, the validity from
+  funnel shifts of flag words, and the writes at a column offset into a
+  larger region; and its pieces alone at their edges (a block that begins
+  in a read's tail or starts no window, the multiplier at every P it gets,
+  the encode on every byte).  The CUDA kernel itself runs only on the card
+  (tests/test_torch_cuda.py, chip_smoke.py).
 - The wrappers' checks.
 
 Tolerance: exact equality; everything is integer.
@@ -30,6 +35,7 @@ import torch
 
 from kmer_counter_tpu_torch.ops import fused_extract as fx
 from kmer_counter_tpu_torch.ops import pipeline
+from kmer_counter_tpu_torch.ops.encode import encode_reads
 from kmer_counter_tpu_torch.ops.u32 import to_numpy
 from kmer_counter_tpu_torch.records import active_lanes
 
@@ -85,139 +91,191 @@ def test_keys_mode_matches_pallas_masked(k, canonical):
 
 # ---- a NumPy model of csrc/fused_extract.cu ---------------------------------
 
+THREADS = 256  # kThreads: one staged 16-byte chunk a thread
 HALO = 128  # kHalo: staged bases past a tile
-GARBAGE = ord("A")  # what the model puts in staged bytes the kernel never loads
+GARBAGE = ord("A")  # what the model puts in loaded bytes outside the reads
+GATHER_CODES = (1 << 30) | (1 << 20) | (1 << 10) | 1  # kGatherCodes
+GATHER_FLAGS = (1 << 21) | (1 << 14) | (1 << 7) | 1  # kGatherFlags
+
+
+def tile_of(threads):
+    """kTile for a block of ``threads``: 16 * threads staged bytes less the
+    halo and 16 bytes of alignment."""
+    return 16 * threads - HALO - 16
+
+
+SMALL_THREADS = 14  # a tile of 80 bases: reads cross and exceed it
+assert tile_of(THREADS) == EXTRACT_TILE
+
+
+def _u64(x):
+    return np.asarray(x, np.uint64)
 
 
 def _funnel_r(lo, hi, s):
     """__funnelshift_r: the low 32 bits of (hi:lo) >> s, s in [0, 31]."""
-    return ((hi.astype(np.uint64) << np.uint64(32) | lo.astype(np.uint64)) >> s.astype(np.uint64)) & M
+    return ((_u64(hi) << np.uint64(32) | _u64(lo)) >> _u64(s)) & M
 
 
 def _funnel_l(lo, hi, s):
     """__funnelshift_l: the high 32 bits of (hi:lo) << s, s in [0, 31]."""
-    x = hi.astype(np.uint64) << np.uint64(32) | lo.astype(np.uint64)
-    return ((x << s.astype(np.uint64)) >> np.uint64(32)) & M
+    x = _u64(hi) << np.uint64(32) | _u64(lo)
+    return ((x << _u64(s)) >> np.uint64(32)) & M
+
+
+def _umulhi(a, b):
+    """__umulhi: the high 32 bits of the 64-bit product of two uint32."""
+    return (_u64(a) * _u64(b)) >> np.uint64(32)
+
+
+def _byte_perm(x, y, sel):
+    """__byte_perm(x, y, sel): byte i of the result is byte (sel >> 4i) & 7
+    of the 8 bytes y:x."""
+    xy = _u64(y) << np.uint64(32) | _u64(x)
+    out = np.zeros(np.shape(xy), np.uint64)
+    for i in range(4):
+        b = (sel >> (4 * i)) & 7
+        out |= ((xy >> np.uint64(8 * b)) & 0xFF) << np.uint64(8 * i)
+    return out
 
 
 def _rev_groups(v):
     """__brev, then a swap of the two bits of each group."""
+    v = _u64(v)
     bits = (v[..., None] >> np.arange(32, dtype=np.uint64)) & 1
     x = (bits[..., ::-1] << np.arange(32, dtype=np.uint64)).sum(-1)
     return ((x & 0x55555555) << np.uint64(1)) | ((x >> np.uint64(1)) & 0x55555555)
 
 
-def kernel_model(reads, k, canonical, keys, dst, off, tile=EXTRACT_TILE, shift=0):
+def encode4(x):
+    """The kernel's encode4 on 32-bit words of four ASCII bytes: (codes, 2
+    bits in each byte, an invalid byte coded 3; invalid flags, 0x80 in each
+    invalid byte)."""
+    u = _u64(x) & 0xDFDFDFDF
+    c = ((u >> np.uint64(1)) ^ (u >> np.uint64(2))) & 0x03030303
+    letter = 0x41414141 + 2 * c + (c & 0x02020202) + 11 * ((c >> np.uint64(1)) & c & 0x01010101)
+    diff = u ^ letter
+    bad = (((diff & 0x7F7F7F7F) + 0x7F7F7F7F) | diff) & 0x80808080
+    return c | (bad >> np.uint64(6)) | (bad >> np.uint64(7)), bad
+
+
+def stage(raw):
+    """Step 1 on the staged bytes ``[B, 16 * threads] uint8``: (s_code [B,
+    threads], s_rc [B, threads + 1], s_inv [B, threads / 2] 32-bit flag
+    words)."""
+    w = raw.view("<u4").astype(np.uint64).reshape(raw.shape[0], -1, 4)
+    codes, bad = encode4(w)
+    y = (codes * GATHER_CODES) & M
+    code = _byte_perm(_byte_perm(y[..., 3], y[..., 2], 0x0073), _byte_perm(y[..., 1], y[..., 0], 0x0073), 0x5410)
+    lo = ((bad[..., 0] >> np.uint64(4)) | bad[..., 1]) * GATHER_FLAGS & M
+    hi = ((bad[..., 2] >> np.uint64(4)) | bad[..., 3]) * GATHER_FLAGS & M
+    flags16 = _byte_perm(lo, hi, 0x0073) & 0xFFFF
+    s_rc = np.concatenate([np.zeros((raw.shape[0], 1), np.uint64), _rev_groups(~code & M)], axis=1)
+    return code, s_rc, flags16[:, 0::2] | (flags16[:, 1::2] << np.uint64(16))
+
+
+def block_windows(N, L, k, tile):
+    """Step 2 for every block: (b0, w0, count, col0) — the windows that
+    start before b0, those that start in [b0, b0 + tile), b0's column."""
+    P = L - k + 1
+    b0 = np.arange(-(-N // tile), dtype=np.int64) * tile
+
+    def before(b):
+        return (b // L) * P + np.minimum(b % L, P)
+
+    w0 = before(b0)
+    return b0, w0, before(np.minimum(b0 + tile, N)) - w0, b0 % L
+
+
+def magic_of(P):
+    """The host's multiplier for d = n // P: floor(2^31 / P) + 1."""
+    return (1 << 31) // P + 1
+
+
+def kernel_model(reads, k, canonical, keys, dst, off, threads=THREADS, shift=0):
     """The kernel's steps on numpy arrays, each block's as the kernel takes
     them: writes ``dst`` (uint32, NL or NL+1 rows) at columns off + w and
     returns the all-T count (keys mode).  ``shift``: the reads' pointer
     modulo 16, which places the staged bytes in shared memory."""
     R, L = reads.shape
     NL, N, P = active_lanes(k), R * L, L - k + 1
+    tile = tile_of(threads)
     flat = reads.reshape(-1)
-    words = (tile + HALO) // 16  # kWords
-    raw_chunks = (15 + tile + HALO) // 16 + 2  # kRawChunks
-    staged = tile + 16 * NL
-    B = -(-N // tile)
-    b0 = np.arange(B, dtype=np.int64) * tile
+    b0, w0, count, col0 = block_windows(N, L, k, tile)
+    B = len(b0)
 
-    # 1. aligned 16-byte chunks of [b0 - shift, b0 + staged), those that hold a byte of the reads
-    chunks = (shift + staged + 15) // 16
-    assert chunks <= raw_chunks
-    idx = np.arange(raw_chunks * 16)[None]
-    src = b0[:, None] - shift + idx  # the reads' byte of each staged byte
-    loaded = (idx // 16 < chunks) & (b0[:, None] - shift + 16 * (idx // 16) < N)
-    raw = np.where(loaded & (src >= 0) & (src < N), flat[np.clip(src, 0, N - 1)], GARBAGE).astype(np.uint8)
-    raw32 = raw.view("<u4").astype(np.uint64)  # [B, 4 * raw_chunks]
+    # 1. thread t loads the aligned chunk at b0 - shift + 16t when it starts before N, else zeros
+    x = np.arange(16 * threads)[None]
+    g = b0[:, None] - shift + x
+    loaded = b0[:, None] - shift + 16 * (x // 16) < N
+    inside = np.where((g >= 0) & (g < N), flat[np.clip(g, 0, N - 1)], GARBAGE)
+    code, s_rc, s_inv = stage(np.where(loaded, inside, 0).astype(np.uint8))
 
-    # 2. encode: word j holds local bases 16j..16j+15
-    limit = np.minimum(N - b0, staged)
-    o = shift + 16 * np.arange(words)
-    w, s = o >> 2, 8 * (o & 3)
-    assert (w + 4 < raw32.shape[1]).all()
-    code = np.zeros((B, words), np.uint64)
-    inv16 = np.zeros((B, words), np.uint64)
-    for m4 in range(4):
-        byte4 = _funnel_r(raw32[:, w + m4], raw32[:, w + m4 + 1], np.broadcast_to(s, (B, words)))
-        for b in range(4):
-            m = 4 * m4 + b
-            u = ((byte4 >> np.uint64(8 * b)) & 0xFF) & 0xDF
-            c = np.select([u == ord("A"), u == ord("C"), u == ord("G")], [0, 1, 2], 3).astype(np.uint64)
-            bad = ~np.isin(u, [ord("A"), ord("C"), ord("G"), ord("T")])
-            past = (16 * np.arange(words) + m)[None] >= limit[:, None]
-            c[past], bad = 3, bad | past
-            code |= c << np.uint64(30 - 2 * m)
-            inv16 |= bad.astype(np.uint64) << np.uint64(m)
-    inv32 = inv16[:, 0::2] | (inv16[:, 1::2] << np.uint64(16))
-
-    # 3. windows: local starts p of each block; row and column of b0 + p
-    p = np.arange(tile)[None].repeat(B, 0)
-    r0, c0 = b0 // L, b0 % L
-    col, row = c0[:, None] + p, r0[:, None].repeat(tile, 1)
+    # 3. window i of a block: d rows past the first window's, at staged base q
+    in_row = col0 < P
+    q0 = shift + np.where(in_row, 0, L - col0)
+    i = np.arange(tile)[None]
     if L >= tile:
-        wrap = col >= L
-        col, row = col - wrap * L, row + wrap
+        row_left = np.minimum(np.where(in_row, P - col0, P), tile)
+        d = (i >= row_left[:, None]).astype(np.int64)
     else:
-        d = col // L
-        col, row = col - d * L, row + d
-    is_window = (b0[:, None] + p < N) & (col < P)
-    win = row * P + col
+        c0 = np.where(in_row, col0, 0)
+        assert ((c0[:, None] + i) * P < 1 << 31).all()
+        d = _umulhi(2 * (c0[:, None] + i), magic_of(P)).astype(np.int64)
+    is_window = i < count[:, None]
+    q = np.where(is_window, q0[:, None] + i + d * (k - 1), 0)
+    assert (q[is_window] < shift + tile).all()  # a window starts in the block's tile
 
-    def group(q):
-        j = q >> 4
-        return _funnel_l(np.take_along_axis(code, j + 1, 1), np.take_along_axis(code, j, 1), 2 * (q & 15))
+    def take(a, idx):
+        assert (idx >= 0).all() and (idx < a.shape[1]).all()
+        return np.take_along_axis(a, idx, 1)
 
-    key = []
-    for i in range(NL):
-        n = min(16, k - 16 * i)
-        mask = M if n == 16 else ~(M >> (2 * n)) & M
-        key.append(group(p + 16 * i) & mask)
+    # 4. lanes: one funnel shift of two words each, the same shift for every lane
+    n_last = k - 16 * (NL - 1)
+    lane_mask = M if n_last == 16 else ~(M >> (2 * n_last)) & M
+    j, s = q >> 4, 2 * (q & 15)
+    key = [_funnel_l(take(code, j + l + 1), take(code, j + l), s) for l in range(NL)]
+    key[-1] &= lane_mask
     if canonical:
-        rc = []
-        for i in range(NL):
-            n = min(16, k - 16 * i)
-            if n == 16:
-                rc.append(_rev_groups(~group(p + k - 16 * (i + 1)) & M))
-            else:
-                rc.append((_rev_groups(~group(p) & M) << np.uint64(2 * (16 - n))) & M)
-        take_rc, decided = np.zeros(p.shape, bool), np.zeros(p.shape, bool)
-        for i in range(NL):
-            differ = ~decided & (rc[i] != key[i])
-            take_rc |= differ & (rc[i] < key[i])
+        e = q + k - 1
+        je, s = e >> 4, 30 - 2 * (e & 15)
+        rc = [_funnel_l(take(s_rc, je - l), take(s_rc, je - l + 1), s) for l in range(NL)]
+        rc[-1] &= lane_mask
+        take_rc, decided = np.zeros(q.shape, bool), np.zeros(q.shape, bool)
+        for l in range(NL):
+            differ = ~decided & (rc[l] != key[l])
+            take_rc |= differ & (rc[l] < key[l])
             decided |= differ
         key = [np.where(take_rc, r, f) for r, f in zip(rc, key)]
 
-    # validity: invalid bases in [p, p + k), 32 flags a word
-    q, end, n_bad = p.copy(), p + k, np.zeros(p.shape, np.int64)
-    for _ in range(5):
-        active = q < end
-        lo = q & 31
-        hi = np.minimum(end - q + lo, 32)
-        mask = ((np.uint64(1) << hi.astype(np.uint64)) - np.uint64(1)) & ~((np.uint64(1) << lo.astype(np.uint64))
-                                                                           - np.uint64(1))
-        hit = np.take_along_axis(inv32, np.minimum(q >> 5, inv32.shape[1] - 1), 1) & mask
-        n_bad += np.where(active, np.bitwise_count(hit), 0)
-        q = np.where(active, q + hi - lo, q)
-    assert (q >= end).all()  # five words cover any window
-    valid = n_bad == 0
+    # validity: (NL+1)/2 funnel shifts of adjacent flag words, the last masked
+    span = (NL + 1) // 2
+    v_last = k - 32 * (span - 1)
+    v_mask = M if v_last == 32 else (1 << v_last) - 1
+    jv, s = q >> 5, q & 31
+    bad = np.zeros(q.shape, np.uint64)
+    for t in range(span):
+        x = _funnel_r(take(s_inv, jv + t), take(s_inv, jv + t + 1), s)
+        bad |= x & v_mask if t == span - 1 else x
+    valid = bad == 0
 
-    # 4. writes
-    cols = off + win[is_window]
+    # 5. writes at column off + w0 + i
+    cols = off + (w0[:, None] + i)[is_window]
     v = valid[is_window]
     allt = 0
     if keys:
         if k % 16 == 0 and not canonical:
             allt = int((v & np.all([x[is_window] == M for x in key], axis=0)).sum())
-        for i in range(NL):
-            dst[i, cols] = np.where(v, key[i][is_window], M)
+        for l in range(NL):
+            dst[l, cols] = np.where(v, key[l][is_window], M)
     else:
-        for i in range(NL):
-            dst[i, cols] = key[i][is_window]
+        for l in range(NL):
+            dst[l, cols] = key[l][is_window]
         dst[NL, cols] = v
     return allt
 
 
-def _model_vs_plain(reads, k, canonical, tile, shift, off=5, tail=3):
+def _model_vs_plain(reads, k, canonical, threads, shift, off=5, tail=3):
     """Both modes of the model against the plain versions, written at
     column ``off`` of a region ``tail`` columns wider than needed; the
     columns around the chunk keep their pattern."""
@@ -229,7 +287,7 @@ def _model_vs_plain(reads, k, canonical, tile, shift, off=5, tail=3):
     for keys, want in ((False, want_rec), (True, to_numpy(want_keys))):
         pattern = np.uint32(0x5A5A5A5A)
         dst = np.full((NL + (not keys), off + n + tail), pattern, np.uint32)
-        allt = kernel_model(reads, k, canonical, keys, dst, off, tile, shift)
+        allt = kernel_model(reads, k, canonical, keys, dst, off, threads, shift)
         np.testing.assert_array_equal(dst[:, off : off + n], want, err_msg=f"k={k} L={L} keys={keys}")
         assert (dst[:, :off] == pattern).all() and (dst[:, off + n :] == pattern).all()
         if keys:
@@ -238,14 +296,26 @@ def _model_vs_plain(reads, k, canonical, tile, shift, off=5, tail=3):
 
 @pytest.mark.parametrize("k", range(1, 129))
 def test_kernel_model_matches_plain(k):
-    """Every k, both modes, canonical or not, at a tile of 64 bases: reads
-    shorter than the tile, a tile that cuts reads, reads longer than the
-    tile (cut along the row with the halo), and each pointer alignment."""
+    """Every k, both modes, canonical or not, at a tile of 80 bases: reads
+    shorter than the tile (the multiplier), a tile that cuts reads, reads
+    longer than the tile (cut along the row with the halo), and a pointer
+    alignment that moves with k and L."""
     rng = np.random.default_rng(k)
     for L, R in ((k, 7), (k + 1, 5), (k + 17, 4), (k + 150, 2)):
         reads = extract_reads(rng, R, L)
         for canonical in (False, True):
-            _model_vs_plain(reads, k, canonical, tile=64, shift=(k + L) % 16)
+            _model_vs_plain(reads, k, canonical, threads=SMALL_THREADS, shift=(k + L) % 16)
+
+
+@pytest.mark.parametrize("shift", range(16))
+def test_kernel_model_at_every_alignment(shift):
+    """Each of the 16 pointer alignments, at k with a full, a partial and a
+    single-base last lane, reads shorter and longer than the small tile."""
+    rng = np.random.default_rng(100 + shift)
+    for k, L, R in ((31, 45, 9), (32, 32, 11), (97, 200, 2), (128, 131, 3)):
+        reads = extract_reads(rng, R, L)
+        for canonical in (False, True):
+            _model_vs_plain(reads, k, canonical, threads=SMALL_THREADS, shift=shift)
 
 
 @pytest.mark.parametrize("k,canonical", [(31, True), (32, False), (128, False), (101, True), (1, False)])
@@ -254,7 +324,7 @@ def test_kernel_model_at_the_kernel_tile(k, canonical):
     reads longer than a tile."""
     rng = np.random.default_rng(k)
     for R, L in ((EXTRACT_TILE // 100 + 1, 100), (2, EXTRACT_TILE + 300), (1, max(k, 7))):
-        _model_vs_plain(extract_reads(rng, R, max(L, k)), k, canonical, tile=EXTRACT_TILE, shift=3)
+        _model_vs_plain(extract_reads(rng, R, max(L, k)), k, canonical, threads=THREADS, shift=3)
 
 
 def test_model_all_t_windows_go_to_the_side_count():
@@ -263,9 +333,70 @@ def test_model_all_t_windows_go_to_the_side_count():
         reads[1, 4] = ord("t")
         reads[2, 5] = ord("N")
         dst = np.zeros((active_lanes(k), 3 * 10), np.uint32)
-        assert kernel_model(reads, k, False, True, dst, 0, tile=64) == 10 + 10 + 4
+        assert kernel_model(reads, k, False, True, dst, 0, threads=SMALL_THREADS) == 10 + 10 + 4
         assert (dst == M).all()
-        _model_vs_plain(reads, k, False, tile=64, shift=0)
+        _model_vs_plain(reads, k, False, threads=SMALL_THREADS, shift=0)
+
+
+@pytest.mark.parametrize("threads", [SMALL_THREADS, THREADS])
+def test_model_block_that_begins_in_a_reads_tail(threads):
+    """A block whose range begins inside a read's last k-1 bases has its
+    first window at column 0 of the next read."""
+    k, L = 101, 151
+    R = 2 * tile_of(threads) // L + 3
+    _, _, count, col0 = block_windows(R * L, L, k, tile_of(threads))
+    assert ((col0 >= L - k + 1) & (count > 0)).any()
+    reads = extract_reads(np.random.default_rng(7), R, L)
+    for canonical in (False, True):
+        _model_vs_plain(reads, k, canonical, threads=threads, shift=5)
+
+
+@pytest.mark.parametrize("threads,k,R,L", [(10, 40, 5, 40), (THREADS, 31, None, 100)])
+def test_model_block_without_a_window(threads, k, R, L):
+    """A block whose whole range lies in reads' tails starts no window: with
+    L = k and a 16-base tile, and at the kernel's tile a last block that
+    begins in the last read's tail."""
+    tile = tile_of(threads)
+    if R is None:  # the chunk ends 1..k-1 bytes past a tile boundary
+        R = next(r for r in range(tile // L, 4 * tile) if 0 < r * L % tile < k)
+    _, _, count, _ = block_windows(R * L, L, k, tile)
+    assert (count == 0).any()
+    reads = extract_reads(np.random.default_rng(8), R, L)
+    for canonical in (False, True):
+        _model_vs_plain(reads, k, canonical, threads=threads, shift=9)
+
+
+def test_multiplier_division_matches_floor_division():
+    """d = __umulhi(2n, floor(2^31 / P) + 1) is n // P for every n the
+    kernel gives it (n < P + tile) at every P from 1 to 300 and at the
+    largest P of a read shorter than the tile."""
+    for P in [*range(1, 301), EXTRACT_TILE - 2, EXTRACT_TILE - 1]:
+        n = np.arange(P + EXTRACT_TILE, dtype=np.uint64)
+        np.testing.assert_array_equal(_umulhi(2 * n, magic_of(P)), n // np.uint64(P), err_msg=f"P={P}")
+
+
+def test_encode4_matches_plain_encode_on_every_byte():
+    """The four-bytes-at-a-time encode against ops/encode.py on all 256 byte
+    values, at every position within a word, and its staged code, reverse
+    complement and flag words against a base-by-base build."""
+    values = np.arange(256, dtype=np.uint8)
+    codes, valid = (t.numpy() for t in encode_reads(torch.from_numpy(values[None])))
+    for rot in range(4):  # byte b of each word: values[(4w + b + rot) % 256]
+        raw = np.roll(values, -rot)
+        c, bad = encode4(raw.view("<u4"))
+        got_codes = (c[:, None] >> (8 * np.arange(4, dtype=np.uint64))) & 3
+        got_bad = (bad[:, None] >> (8 * np.arange(4, dtype=np.uint64) + 7)) & 1
+        np.testing.assert_array_equal(got_codes.reshape(-1), np.roll(codes[0], -rot))
+        np.testing.assert_array_equal(got_bad.reshape(-1) == 1, ~np.roll(valid[0], -rot))
+    raw = np.random.default_rng(3).permutation(np.tile(values, 4))[None]  # 1024 bytes: 64 words
+    code, s_rc, s_inv = stage(raw)
+    c, v = (t.numpy()[0] for t in encode_reads(torch.from_numpy(raw)))
+    c16 = c.reshape(-1, 16).astype(np.uint64)
+    want = (c16 << (30 - 2 * np.arange(16, dtype=np.uint64))).sum(1)
+    np.testing.assert_array_equal(code[0], want)
+    np.testing.assert_array_equal(s_rc[0, 1:], ((3 - c16) << (2 * np.arange(16, dtype=np.uint64))).sum(1))
+    want_inv = ((~v).reshape(-1, 32).astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(1)
+    np.testing.assert_array_equal(s_inv[0], want_inv)
 
 
 # ---- the wrappers on the CPU --------------------------------------------------
