@@ -9,7 +9,8 @@ and prints no result):
 
   1. device   — card name and power limit (nvidia-smi), torch / CUDA versions
   2. build    — nvcc builds every kernel from csrc/, one process per
-                source, all started together (five sources)
+                source, all started together (five sources); logs each
+                kernel instance's registers and spill bytes
   3. main     — the CLI (kmer_counter_tpu_torch.__main__.main) counts 2M
                 reads x 100 bp sampled from a 4.6-Mbase genome at k=31
                 canonical, gpuMemoryLimit=8e9, with the two-level table;
@@ -142,9 +143,12 @@ and prints no result):
                 trace must agree; each D-id at each launch shape of its
                 harness, kernel against plain (bit-exact) and against the
                 probe's NumPy check, timed (CUDA events, plain version,
-                library call, traced device time, bound); each kernel
-                against its plain version at the edge cases and random
-                shapes of tests/test_torch_cuda.py
+                library call, traced device time, bound; row_gather also
+                each call's time by CUDA events); each kernel against its
+                plain version at the edge cases and random shapes of
+                tests/test_torch_cuda.py, and row_gather and tile_compact
+                inside torch.cuda.stream(side) (their results, after
+                side.synchronize(), equal the plain versions')
 
 The last three lines: the card's name and power limit, one JSON object
 describing each kernel (its launches and times summed over phases 3-7
@@ -432,6 +436,23 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_each(fn, reps):
+    """Each of reps back-to-back calls of fn by CUDA events (an event
+    recorded between calls), after one warm-up: what a call costs the
+    stream when the host issues them as fast as it can."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    events[0].record()
+    for e in events[1:]:
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
 
 
 def in_turns(kernel, plain, library=None, kernel_reps=5, plain_reps=3):
@@ -2296,7 +2317,11 @@ def probe_at_shape(d, shape, device):
         raise AssertionError(f"{d} kernel disagrees with the probe's NumPy check at {shape}")
     del got, want
     ms, plain_ms, library_ms = in_turns(kernel, plain, library, kernel_reps=reps, plain_reps=max(3, reps // 5))
-    return {**timing(0, ms, plain_ms, cost, library_ms), "device_kernels": traced_kernels(kernel)}
+    out = {**timing(0, ms, plain_ms, cost, library_ms), "device_kernels": traced_kernels(kernel)}
+    if wrapper == "row_gather":
+        each = sorted(cuda_ms_each(kernel, reps))
+        out["per_call_ms"] = {"min": each[0], "median": each[len(each) // 2], "max": each[-1]}
+    return out
 
 
 def probe_kernel_checks(device, cases):
@@ -2323,9 +2348,10 @@ def probe_kernel_checks(device, cases):
         cases.probe_tile_vs_plain(*cases.probe_tile_case(rng, n_ops, tiles, density), device)
     for R, W, starts, rows, shift in shapes["row_gather"]:
         cases.probe_gather_vs_plain(cases.probe_gather_case(rng, R, W), starts, rows, shift, device)
-    log({"phase": "probes", "bit_exact": True, "edge_cases": {"pair_merge": len(cases.PROBE_MERGE_SHAPES),
-                                                               "tile_compact": sorted(cases.PROBE_TILE_CASES),
-                                                               "row_gather": sorted(cases.PROBE_GATHER_CASES)},
+    cases.probe_side_stream_vs_plain(device)
+    log({"phase": "probes", "bit_exact": True, "side_stream": True,
+         "edge_cases": {"pair_merge": len(cases.PROBE_MERGE_SHAPES), "tile_compact": sorted(cases.PROBE_TILE_CASES),
+                        "row_gather": sorted(cases.PROBE_GATHER_CASES)},
          "random_shapes": {k: len(v) for k, v in shapes.items()}})
 
 
@@ -2549,6 +2575,29 @@ def phase_profile(device, tmp, untraced=3, top=15):
             log({"phase": "profile", "table_impl": impl, "device_ms": us / 1e3, "name": name[:120]})
 
 
+def ptxas_report(build_log):
+    """Each kernel instance's registers and spill bytes from nvcc's -Xptxas
+    -v report: [{"kernel": mangled name, "registers", "spill_stores",
+    "spill_loads"}]."""
+    import re
+
+    out, current = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = out.setdefault(m.group(1), {"kernel": m.group(1)})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and current is not None:
+            current["spill_stores"], current["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = out.setdefault(m.group(1), {"kernel": m.group(1)})
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current is not None:
+            current["registers"] = int(m.group(1))
+    return [k for k in out.values() if "registers" in k]
+
+
 def phase_build():
     """Builds every source at once (one nvcc each); logs each build.  At
     once, the build takes as long as the slowest nvcc, not the sum."""
@@ -2565,8 +2614,10 @@ def phase_build():
                   pool.submit(fx.tile_bases), pool.submit(probes.kernel_tile)]:
             f.result()
     for source in ("merge_fold_compact", "lane_sort", "compact_live", "fused_extract", "probes"):
-        log({"phase": "build", "source": f"csrc/{source}.cu", "nvcc_s": cuda_build.build_seconds[source]})
-        print(cuda_build.build_log.get(source, "").strip(), flush=True)
+        report = cuda_build.build_log.get(source, "")
+        log({"phase": "build", "source": f"csrc/{source}.cu", "nvcc_s": cuda_build.build_seconds[source],
+             "instances": ptxas_report(report)})
+        print(report.strip(), flush=True)
     log({"phase": "build", "wall_s": time.perf_counter() - t0})
 
 

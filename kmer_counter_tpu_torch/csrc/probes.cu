@@ -17,7 +17,9 @@
 // What bounds them: memory.  Each reads its inputs once and writes its
 // output once with next to no arithmetic; at the probes' shapes D2-D7 move
 // 8 KB to 1 MB and are bound by the launch, D1 moves 0.6-1 GB (576 tiles
-// of 65,536 rows, 3 operands).
+// of 65,536 rows, 3 operands).  D1's network writes 97% of its bytes as
+// the zero tail at 3% live, so it is built to stream that tail: short
+// CTAs (an eighth of a tile each) with no serial chain of chunks.
 //
 // pair_merge_kernel<kBDesc>: G pairs of sorted uint32 runs A (ta keys) and
 // B (tb keys, stored descending when kBDesc) into sort(A ++ B).  A block
@@ -31,30 +33,43 @@
 // interchangeable, but every split takes A first on ties, so the blocks
 // partition the merge exactly.
 //
-// tile_compact_kernel<kMode>: one block per tile of kTile = 65,536 rows.
-// copy: 16-byte copies.  cumsum and network: the block walks its tile in
-// chunks of 4 rows a thread (one 16-byte load of the flags), counts each
-// thread's dead (cumsum) or live (network) rows, scans the counts across
-// the block (warp shuffles, then the warp totals), carries the chunk's
-// total into the next chunk, and then: cumsum adds each row's exclusive
-// dead count to every operand (uint32, so mod 2^32); network lists the
-// chunk's live rows by rank in shared memory, and a thread a rank copies
-// that row of every operand to its in-tile rank (all loads before any
-// store); after the last chunk, zeros from the tile's live count to its
-// end.  No carry crosses a tile.
+// tile_compact_kernel<kMode>, a tile being kTile = 65,536 rows:
+// - copy: a block a tile, 16-byte copies.
+// - cumsum: a block a tile, walking it in chunks of 4 rows a thread (one
+//   16-byte load of the flags); each thread's dead rows counted, the
+//   counts scanned across the block (warp shuffles, then the warp totals),
+//   the chunk's total carried into the next, each row's exclusive dead
+//   count added to every operand (uint32, so mod 2^32).
+// - network: a thread-block cluster of kCluster CTAs a tile, a CTA a part
+//   of kPart rows, a thread 32 consecutive rows.  A warp issues its eight
+//   coalesced 16-byte flag loads a lane at once; ballots turn them into one
+//   mask word a thread for its 32 rows; one block scan of the popcounts ranks the threads in the
+//   part; the parts' live counts cross the cluster through distributed
+//   shared memory (one cluster barrier), which gives each part its base
+//   rank and the tile's total.  Then two independent kinds of write: a
+//   thread loads every operand of its live rows (four at a time) before it
+//   stores them at consecutive ranks, and each CTA zeroes its part's rows
+//   at or past the tile's total (a scalar head, then 16-byte stores) while
+//   its first loads are in flight.  Live rows land anywhere below the
+//   total, in any part, so no CTA zeroes below it.
+// No carry crosses a tile.
 //
-// row_gather_kernel: blocks stride over the output rows, a block copying a
-// row's words; output row j of window g is x[(starts[g] + shift + j) mod
-// R].  The kernel reads the starts on the device (the Pallas probe's
-// scalar prefetch) and never leaves x.
+// row_gather_kernel: a warp an output row, warps striding over the output
+// rows; output row j of window g is x[(starts[g] + shift + j) mod R],
+// copied 16 bytes a lane where the row width and the pointers allow.  The
+// kernel reads the starts on the device (the Pallas probe's scalar
+// prefetch) and never leaves x.  At the probes' shapes it is bound by its
+// launch: the wrapper's host path is kept short (ops/probes.py).
 
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "lanes.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
 using lanes::Ops;
 using lanes::OutOps;
 
@@ -113,13 +128,25 @@ __global__ void __launch_bounds__(kMergeThreads)
 // ---- tile_compact_kernel -----------------------------------------------------
 
 constexpr int kTile = 65536;
-constexpr int kTileThreads = 1024;
-constexpr int kTileWarps = kTileThreads / 32;
-constexpr int kChunk = 4 * kTileThreads;  // rows a block scans at once
 enum Mode { kCopy = 0, kCumsum = 1, kNetwork = 2 };
+// copy and cumsum: a block a tile; cumsum in chunks of 4 rows a thread.
+constexpr int kTileThreads = 1024;
+constexpr int kChunk = 4 * kTileThreads;  // rows a block scans at once
+// network: a cluster of kCluster CTAs a tile, a CTA a part of kPart rows, a
+// thread kNetRows consecutive rows (one mask word).
+constexpr int kCluster = 8;
+constexpr int kPart = kTile / kCluster;
+constexpr int kNetThreads = 256;
+constexpr int kNetRows = kPart / kNetThreads;
+constexpr int kBatch = 4;  // live rows whose operands a thread loads before it stores
+static_assert(kNetRows == 32, "a thread's rows are one mask word");
+
+constexpr int mode_threads(int mode) { return mode == kNetwork ? kNetThreads : kTileThreads; }
+constexpr int mode_min_blocks(int mode) { return mode == kNetwork ? 4 : 1; }
 
 // The block's exclusive prefix sum of x (one value a thread) and, in
-// total, the sum over the block.  s_warp holds kTileWarps ints.
+// total, the sum over the block.  s_warp holds kWarps ints.
+template <int kWarps>
 __device__ __forceinline__ int block_exclusive_scan(int x, int* s_warp, int& total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int inc = x;
@@ -131,17 +158,17 @@ __device__ __forceinline__ int block_exclusive_scan(int x, int* s_warp, int& tot
   if (lane == 31) s_warp[warp] = inc;
   __syncthreads();
   if (warp == 0) {
-    int w = s_warp[lane];
+    int w = lane < kWarps ? s_warp[lane] : 0;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
       const int y = __shfl_up_sync(0xFFFFFFFFu, w, o);
       if (lane >= o) w += y;
     }
-    s_warp[lane] = w;
+    if (lane < kWarps) s_warp[lane] = w;
   }
   __syncthreads();
   const int before = warp ? s_warp[warp - 1] : 0;
-  total = s_warp[kTileWarps - 1];
+  total = s_warp[kWarps - 1];
   __syncthreads();  // s_warp is reused by the next chunk
   return before + inc - x;
 }
@@ -150,26 +177,25 @@ __device__ __forceinline__ uint32_t word(const uint4& x, int q) {
   return q == 0 ? x.x : (q == 1 ? x.y : (q == 2 ? x.z : x.w));
 }
 
-template <int kMode>
-__global__ void __launch_bounds__(kTileThreads)
-    tile_compact_kernel(Ops in, OutOps out, int n_ops, const uint32_t* live) {
-  __shared__ int s_warp[kTileWarps];
-  __shared__ uint16_t s_rows[kMode == kNetwork ? kChunk : 1];  // network: the chunk's live rows (in-tile)
+// The operand loops below run over the most lanes there can be, unrolled,
+// so that the pointer arrays are indexed by constants.
+
+__device__ __forceinline__ void copy_body(const Ops& in, const OutOps& out, int n_ops) {
   const long long base = (long long)blockIdx.x * kTile;
-  // The operand loops run over the most lanes there can be, unrolled, so
-  // that the pointer arrays are indexed by constants.
-  if constexpr (kMode == kCopy) {
 #pragma unroll
-    for (int o = 0; o < lanes::kMaxOps; ++o) {
-      if (o < n_ops) {
-        const uint4* src = reinterpret_cast<const uint4*>(in.p[o] + base);
-        uint4* dst = reinterpret_cast<uint4*>(out.p[o] + base);
-        for (int i = threadIdx.x; i < kTile / 4; i += kTileThreads) dst[i] = __ldcs(src + i);
-      }
+  for (int o = 0; o < lanes::kMaxOps; ++o) {
+    if (o < n_ops) {
+      const uint4* src = reinterpret_cast<const uint4*>(in.p[o] + base);
+      uint4* dst = reinterpret_cast<uint4*>(out.p[o] + base);
+      for (int i = threadIdx.x; i < kTile / 4; i += kTileThreads) dst[i] = __ldcs(src + i);
     }
-    return;
   }
-  int carry = 0;  // the dead (cumsum) or live (network) rows of the chunks before
+}
+
+__device__ __forceinline__ void cumsum_body(const Ops& in, const OutOps& out, int n_ops, const uint32_t* live) {
+  __shared__ int s_warp[kTileThreads / 32];
+  const long long base = (long long)blockIdx.x * kTile;
+  int carry = 0;  // the dead rows of the chunks before
 #pragma unroll 1
   for (int c = 0; c < kTile; c += kChunk) {
     const int r = c + 4 * (int)threadIdx.x;  // the thread's first row in the tile
@@ -177,90 +203,232 @@ __global__ void __launch_bounds__(kTileThreads)
     int on[4], mine = 0;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      on[q] = kMode == kCumsum ? word(f, q) == 0u : word(f, q) != 0u;
+      on[q] = word(f, q) == 0u;
       mine += on[q];
     }
     int total;
-    const int before = carry + block_exclusive_scan(mine, s_warp, total);
-    if constexpr (kMode == kCumsum) {
-      uint32_t delta[4];
-      int k = before;
+    const int before = carry + block_exclusive_scan<kTileThreads / 32>(mine, s_warp, total);
+    uint32_t delta[4];
+    int k = before;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        delta[q] = (uint32_t)k;
-        k += on[q];
-      }
-#pragma unroll
-      for (int o = 0; o < lanes::kMaxOps; ++o) {
-        if (o < n_ops) {
-          const uint4 v = __ldcs(reinterpret_cast<const uint4*>(in.p[o] + base + r));
-          *reinterpret_cast<uint4*>(out.p[o] + base + r) =
-              make_uint4(v.x + delta[0], v.y + delta[1], v.z + delta[2], v.w + delta[3]);
-        }
-      }
-    } else {
-      // The chunk's live rows by rank in shared memory, then a thread a
-      // rank: every operand's value loaded before any is stored, so that a
-      // chunk waits on one round trip to device memory (a load and a store
-      // a row and operand in turn waited on one round trip each).
-      int k = before - carry;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        if (on[q]) s_rows[k++] = (uint16_t)(r + q);
-      }
-      __syncthreads();
-      for (int t = threadIdx.x; t < total; t += kTileThreads) {
-        const long long src = base + s_rows[t], dst = base + carry + t;
-        uint32_t v[lanes::kMaxOps];
-#pragma unroll
-        for (int o = 0; o < lanes::kMaxOps; ++o) {
-          if (o < n_ops) v[o] = __ldcs(in.p[o] + src);
-        }
-#pragma unroll
-        for (int o = 0; o < lanes::kMaxOps; ++o) {
-          if (o < n_ops) out.p[o][dst] = v[o];
-        }
-      }
+    for (int q = 0; q < 4; ++q) {
+      delta[q] = (uint32_t)k;
+      k += on[q];
     }
-    carry += total;  // the next chunk's scan synchronises before s_rows is written again
-  }
-  if constexpr (kMode == kNetwork) {
 #pragma unroll
     for (int o = 0; o < lanes::kMaxOps; ++o) {
       if (o < n_ops) {
-        for (int i = carry + (int)threadIdx.x; i < kTile; i += kTileThreads) out.p[o][base + i] = 0u;
+        const uint4 v = __ldcs(reinterpret_cast<const uint4*>(in.p[o] + base + r));
+        *reinterpret_cast<uint4*>(out.p[o] + base + r) =
+            make_uint4(v.x + delta[0], v.y + delta[1], v.z + delta[2], v.w + delta[3]);
       }
     }
+    carry += total;
+  }
+}
+
+// A cluster barrier split in two: a CTA arrives once it has read the
+// others' shared memory and waits before it exits, so that no CTA's
+// shared memory goes while another may still read it.
+__device__ __forceinline__ void cluster_arrive() { asm volatile("barrier.cluster.arrive;" ::: "memory"); }
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait;" ::: "memory"); }
+
+// Bit k of a byte moved to bit 4k.
+__device__ __forceinline__ uint32_t spread4(uint32_t x) {
+  x = (x | (x << 12)) & 0x000F000Fu;
+  x = (x | (x << 6)) & 0x03030303u;
+  return (x | (x << 3)) & 0x11111111u;
+}
+
+// The liveness of the lane's 32 rows of the warp's 1024 (from row p), bit
+// i for row 32 * lane + i, from coalesced loads: load i brings 16-byte word
+// 32 i + l of the flags to lane l, and a ballot a load and word position
+// says where the live rows are; lane L's rows lie in load L / 4, so it
+// takes byte L % 4 of that load's four ballots.
+__device__ __forceinline__ uint32_t warp_masks(const uint32_t* p) {
+  const int lane = threadIdx.x & 31;
+  const uint4* f = reinterpret_cast<const uint4*>(p);
+  uint4 w[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) w[i] = __ldcs(f + 32 * i + lane);
+  uint32_t b[4] = {0u, 0u, 0u, 0u};  // the ballots of load lane / 4, by word position
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint32_t x = __ballot_sync(0xFFFFFFFFu, w[i].x != 0u), y = __ballot_sync(0xFFFFFFFFu, w[i].y != 0u),
+                   z = __ballot_sync(0xFFFFFFFFu, w[i].z != 0u), v = __ballot_sync(0xFFFFFFFFu, w[i].w != 0u);
+    if (i == lane >> 2) {
+      b[0] = x;
+      b[1] = y;
+      b[2] = z;
+      b[3] = v;
+    }
+  }
+  const int sh = 8 * (lane & 3);
+  uint32_t mask = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) mask |= spread4((b[q] >> sh) & 0xFFu) << q;
+  return mask;
+}
+
+__device__ __forceinline__ void network_body(const Ops& in, const OutOps& out, int n_ops, const uint32_t* live) {
+  __shared__ int s_warp[kNetThreads / 32];
+  __shared__ int s_count;  // the part's live rows, read by every CTA of the cluster
+  cg::cluster_group cluster = cg::this_cluster();
+  const int part = (int)cluster.block_rank();
+  const long long base = (long long)(blockIdx.x / kCluster) * kTile;
+  const int r0 = part * kPart + kNetRows * (int)threadIdx.x;  // the thread's first row in the tile
+
+  // The thread's rows' liveness: every 16-byte load of the warp's flags
+  // issued before any is used.
+  const uint32_t mask = warp_masks(live + base + part * kPart + ((int)threadIdx.x & ~31) * kNetRows);
+
+  // The thread's rank in its part, then the parts' counts through
+  // distributed shared memory: the part's base rank and the tile's total.
+  int part_live;
+  int rank = block_exclusive_scan<kNetThreads / 32>(__popc(mask), s_warp, part_live);
+  if (threadIdx.x == 0) s_count = part_live;
+  cluster.sync();
+  int total = 0;
+#pragma unroll
+  for (int c = 0; c < kCluster; ++c) {
+    const int k = *cluster.map_shared_rank(&s_count, c);
+    rank += c < part ? k : 0;
+    total += k;
+  }
+  cluster_arrive();
+
+  // The live rows, lowest first, kBatch a round: every operand of a round
+  // loaded before any is stored, at consecutive ranks.
+  uint32_t m = mask;
+  int rows[kBatch];
+  uint32_t v[kBatch][lanes::kMaxOps];
+  auto load = [&]() {
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      rows[b] = m ? __ffs(m) - 1 : -1;
+      m &= m - 1;
+#pragma unroll
+      for (int o = 0; o < lanes::kMaxOps; ++o) {
+        if (o < n_ops && rows[b] >= 0) v[b][o] = __ldcs(in.p[o] + base + r0 + rows[b]);
+      }
+    }
+  };
+  auto store = [&]() {
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      if (rows[b] >= 0) {
+#pragma unroll
+        for (int o = 0; o < lanes::kMaxOps; ++o) {
+          if (o < n_ops) out.p[o][base + rank] = v[b][o];
+        }
+        ++rank;
+      }
+    }
+  };
+  load();
+
+  // The zero tail: the part's rows at or past the tile's total (no live
+  // row lands there), a scalar head to the next 16-byte boundary, then
+  // 16-byte stores.  It runs while the first round's loads are in flight.
+  const int lo = total > part * kPart ? total : part * kPart, hi = (part + 1) * kPart;
+  if (lo < hi) {
+    const int lo4 = (lo + 3) & ~3;  // <= hi: hi is a multiple of 4
+#pragma unroll
+    for (int o = 0; o < lanes::kMaxOps; ++o) {
+      if (o < n_ops) {
+        uint32_t* p = out.p[o] + base;
+        if ((int)threadIdx.x < lo4 - lo) p[lo + threadIdx.x] = 0u;
+        uint4* q = reinterpret_cast<uint4*>(p);
+        for (int i = lo4 / 4 + (int)threadIdx.x; i < hi / 4; i += kNetThreads) {
+          __stcs(q + i, make_uint4(0u, 0u, 0u, 0u));
+        }
+      }
+    }
+  }
+  store();
+  while (m) {
+    load();
+    store();
+  }
+  cluster_wait();
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(mode_threads(kMode), mode_min_blocks(kMode))
+    tile_compact_kernel(Ops in, OutOps out, int n_ops, const uint32_t* live) {
+  if constexpr (kMode == kCopy) {
+    copy_body(in, out, n_ops);
+  } else if constexpr (kMode == kCumsum) {
+    cumsum_body(in, out, n_ops, live);
+  } else {
+    network_body(in, out, n_ops, live);
   }
 }
 
 // ---- row_gather_kernel -------------------------------------------------------
 
 constexpr int kGatherThreads = 128;
-constexpr int kGatherBlocks = 132 * 16;  // at most; blocks stride over the output rows
+constexpr int kGatherWarps = kGatherThreads / 32;
+constexpr int kGatherBlocks = 132 * 16;  // at most; warps stride over the output rows
 
-// A block an output row at a time: its source row from 32-bit arithmetic
-// (no 64-bit division, whose call spilled registers), then the row's words.
-// start % R and shift (already taken % R) each lie in (-R, R) and j in
-// [0, R), so two additions or subtractions of R bring their sum into
-// [0, R) whatever the start.
+// A warp an output row at a time: its source row from 32-bit arithmetic
+// (no 64-bit division, whose call spilled registers), then the row's words,
+// 16 bytes a lane when kVec (W a multiple of 4, x and out on 16-byte
+// boundaries).  start % R and shift (already taken % R) each lie in (-R, R)
+// and j in [0, R), so two additions or subtractions of R bring their sum
+// into [0, R) whatever the start.
+template <bool kVec>
 __global__ void __launch_bounds__(kGatherThreads)
     row_gather_kernel(const uint32_t* x, const int* starts, uint32_t* out, int R, long long W, int rows,
                       int shift, int out_rows) {
-  for (int row = blockIdx.x; row < out_rows; row += gridDim.x) {
+  const int lane = threadIdx.x & 31;
+  for (int row = blockIdx.x * kGatherWarps + (threadIdx.x >> 5); row < out_rows; row += gridDim.x * kGatherWarps) {
     const int g = row / rows, j = row - g * rows;
     long long v = (long long)(starts[g] % R) + shift + j;
     if (v < 0) v += R;
     if (v < 0) v += R;
     if (v >= R) v -= R;
     if (v >= R) v -= R;
-    const uint32_t* src = x + v * W;
-    uint32_t* dst = out + (long long)row * W;
-    for (long long c = threadIdx.x; c < W; c += kGatherThreads) dst[c] = src[c];
+    if constexpr (kVec) {
+      const uint4* src = reinterpret_cast<const uint4*>(x + v * W);
+      uint4* dst = reinterpret_cast<uint4*>(out + (long long)row * W);
+      for (long long c = lane; c < W / 4; c += 32) dst[c] = src[c];
+    } else {
+      const uint32_t* src = x + v * W;
+      uint32_t* dst = out + (long long)row * W;
+      for (long long c = lane; c < W; c += 32) dst[c] = src[c];
+    }
   }
 }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
+
+// network: a cluster of kCluster CTAs a tile, launched with the cluster
+// dimension as a launch attribute.  A cluster's CTAs must be resident
+// together: the first launch asks the runtime how many clusters fit at
+// once and refuses if none does.
+cudaError_t launch_network(const Ops& ins, const OutOps& outs, int n_ops, const uint32_t* lv, long long n,
+                           cudaStream_t s) {
+  static int clusters = 0;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(n / kTile * kCluster));
+  cfg.blockDim = dim3(kNetThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (clusters == 0) {
+    const cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, tile_compact_kernel<kNetwork>, &cfg);
+    if (e != cudaSuccess) return e;
+    if (clusters == 0) return cudaErrorInvalidConfiguration;
+  }
+  return cudaLaunchKernelEx(&cfg, tile_compact_kernel<kNetwork>, ins, outs, n_ops, lv);
+}
 
 }  // namespace
 
@@ -292,8 +460,8 @@ int pr_pair_merge(const void* a, const void* b, void* out, long long G, long lon
 // boundary, mode 0 copy, 1 cumsum, 2 network.  Returns a cudaError_t.
 int pr_tile_compact(const void* const* in, void* const* out, int n_ops, const void* live, long long n, int mode,
                     void* stream) {
-  if (n_ops < 1 || n_ops > lanes::kMaxOps || n < kTile || n % kTile || n / kTile > 0x7FFFFFFFLL || mode < 0 ||
-      mode > 2 || !aligned16(live)) {
+  if (n_ops < 1 || n_ops > lanes::kMaxOps || n < kTile || n % kTile || n / kTile * kCluster > 0x7FFFFFFFLL ||
+      mode < 0 || mode > 2 || !aligned16(live)) {
     return (int)cudaErrorInvalidValue;
   }
   for (int o = 0; o < n_ops; ++o) {
@@ -307,7 +475,11 @@ int pr_tile_compact(const void* const* in, void* const* out, int n_ops, const vo
   switch (mode) {
     case kCopy: tile_compact_kernel<kCopy><<<grid, kTileThreads, 0, s>>>(ins, outs, n_ops, lv); break;
     case kCumsum: tile_compact_kernel<kCumsum><<<grid, kTileThreads, 0, s>>>(ins, outs, n_ops, lv); break;
-    default: tile_compact_kernel<kNetwork><<<grid, kTileThreads, 0, s>>>(ins, outs, n_ops, lv); break;
+    default: {
+      const cudaError_t e = launch_network(ins, outs, n_ops, lv, n, s);
+      if (e != cudaSuccess) return (int)e;
+      break;
+    }
   }
   return (int)cudaGetLastError();
 }
@@ -321,11 +493,19 @@ int pr_row_gather(const void* x, const void* starts, void* out, long long R, lon
     return (int)cudaErrorInvalidValue;
   }
   const int out_rows = (int)(G * rows);
-  row_gather_kernel<<<out_rows < kGatherBlocks ? out_rows : kGatherBlocks, kGatherThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(static_cast<const uint32_t*>(x),
-                                                           static_cast<const int*>(starts),
-                                                           static_cast<uint32_t*>(out), (int)R, W, rows,
-                                                           (int)(shift % R), out_rows);
+  const int warps = (out_rows + kGatherWarps - 1) / kGatherWarps;
+  const unsigned grid = warps < kGatherBlocks ? warps : kGatherBlocks;
+  const auto* px = static_cast<const uint32_t*>(x);
+  const auto* ps = static_cast<const int*>(starts);
+  auto* po = static_cast<uint32_t*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (W % 4 == 0 && aligned16(x) && aligned16(out)) {
+    row_gather_kernel<true><<<grid, kGatherThreads, 0, s>>>(px, ps, po, (int)R, W, rows, (int)(shift % R),
+                                                             out_rows);
+  } else {
+    row_gather_kernel<false><<<grid, kGatherThreads, 0, s>>>(px, ps, po, (int)R, W, rows, (int)(shift % R),
+                                                              out_rows);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -9,6 +9,9 @@ and an unchanged one loads at once.  The build runs at first use, never
 at import.  Each source has its own lock, so different sources may build
 at once, from different threads: a caller that needs every kernel (as
 chip_smoke.py does) then waits for the slowest nvcc, not for the sum.
+
+``current_stream`` is the launch path's stream handle, for wrappers whose
+kernels are short enough that the host's work per call sets their pace.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -44,6 +49,16 @@ def ptr_array(tensors) -> ctypes.Array:
     """A C array of the tensors' device pointers (``void* const*``), for
     the kernels' entry points; the caller keeps the tensors alive."""
     return (ctypes.c_void_p * len(tensors))(*[v.data_ptr() for v in tensors])
+
+
+def current_stream(device_index: int) -> int:
+    """The raw handle (``cudaStream_t``) of the caller's current stream on
+    the CUDA device of that index: the stream a ``torch.cuda.stream(...)``
+    block set, else the default one.  The same handle as
+    ``torch.cuda.current_stream(device).cuda_stream`` without building a
+    ``Stream`` object a call (PyTorch's private binding that its generated
+    wrappers call; it exists only in a CUDA build of PyTorch)."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 def nvcc_path() -> str:

@@ -30,6 +30,13 @@ Operands are int32 tensors holding uint32 bits (``ops.u32``).  A CUDA
 tensor runs the kernel, a CPU tensor the plain version beside it; on any
 other device, or when the kernel cannot be built or launched, the wrapper
 raises.  There is no fallback.
+
+``row_gather``'s kernel takes 1.5-1.7 us on the card at the probes' shapes,
+so the host's work per call sets its pace; its launch path is kept short:
+checks that read cheap tensor attributes (no ``torch.device`` built, a
+message only on failure), the typed library kept in a module global once
+loaded (no lock), and the stream's raw handle
+(``cuda_build.current_stream``).  ``tile_compact`` takes the same path.
 """
 
 from __future__ import annotations
@@ -50,13 +57,19 @@ MAX_OPS = 9
 # Calls of each wrapper that launched its kernel (once per call on a CUDA
 # tensor with an output row; the plain versions do not count).
 launches = {"pair_merge": 0, "tile_compact": 0, "row_gather": 0}
+_I32 = torch.int32
+_LIB = None  # the typed library, once built and loaded (_lib)
 
 
 def _int32_on_one_device(tensors, what):
+    # CUDA tensors compare device indices; others (CPU, or a device with
+    # no kernel, which _device_kind refuses) their torch.device.
+    first = tensors[0]
+    index = first.get_device() if first.is_cuda else None
     for v in tensors:
-        if v.dtype != torch.int32:
+        if v.dtype is not _I32:
             raise TypeError(f"{what} must be int32 (uint32 bits), got {v.dtype}")
-        if v.device != tensors[0].device:
+        if (v.get_device() != index) if v.is_cuda else (v.device != first.device):
             raise ValueError(f"{what} must be on one device")
         if not v.is_contiguous():
             raise ValueError(f"{what} must be contiguous")
@@ -117,12 +130,15 @@ def tile_compact(ops: Sequence[torch.Tensor], live: torch.Tensor, mode: str) -> 
     """D1's three bodies: the kernel for CUDA tensors, the plain version for
     CPU ones."""
     _check_tiles(ops, live, mode)
-    if _device_kind(live, "tile_compact") == "cpu":
+    if not live.is_cuda and _device_kind(live, "tile_compact") == "cpu":
         return tile_compact_reference(ops, live, mode)
-    out = torch.empty((len(ops), live.shape[0]), dtype=torch.int32, device=live.device)
-    if out.numel():
-        err = _lib().pr_tile_compact(ptr_array(ops), ptr_array(list(out.unbind(0))), len(ops), live.data_ptr(),
-                                     live.shape[0], MODES.index(mode), _stream(live))
+    k, n = len(ops), live.shape[0]
+    out = torch.empty((k, n), dtype=_I32, device=live.device)
+    if n:
+        first, row = out.data_ptr(), 4 * n  # out's rows, one an operand
+        outs = (ctypes.c_void_p * k)(*range(first, first + k * row, row))
+        err = _lib().pr_tile_compact(ptr_array(ops), outs, k, live.data_ptr(), n, MODES.index(mode),
+                                     cuda_build.current_stream(live.get_device()))
         _launched("tile_compact", err)
     return out
 
@@ -161,13 +177,14 @@ def _check_rows(x: torch.Tensor, starts: torch.Tensor, rows: int) -> None:
 def row_gather(x: torch.Tensor, starts: torch.Tensor, rows: int, shift: int) -> torch.Tensor:
     """D4/D5/D6: the kernel for CUDA tensors, the plain version for CPU ones."""
     _check_rows(x, starts, rows)
-    if _device_kind(x, "row_gather") == "cpu":
+    if not x.is_cuda and _device_kind(x, "row_gather") == "cpu":
         return row_gather_reference(x, starts, rows, shift)
     R, W = x.shape
-    out = torch.empty((starts.shape[0], rows, W), dtype=torch.int32, device=x.device)
-    if out.numel():
-        err = _lib().pr_row_gather(x.data_ptr(), starts.data_ptr(), out.data_ptr(), R, W, starts.shape[0], rows,
-                                   shift, _stream(x))
+    G = starts.shape[0]
+    out = torch.empty((G, rows, W), dtype=_I32, device=x.device)
+    if G * rows * W:
+        err = _lib().pr_row_gather(x.data_ptr(), starts.data_ptr(), out.data_ptr(), R, W, G, rows, shift,
+                                   cuda_build.current_stream(x.get_device()))
         _launched("row_gather", err)
     return out
 
@@ -187,16 +204,19 @@ def row_gather_reference(x: torch.Tensor, starts: torch.Tensor, rows: int, shift
 
 
 def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load("probes")
-    if not getattr(lib, "_pr_typed", False):
+    """The library with its entry points typed: built and loaded at the
+    first call, then kept in _LIB."""
+    global _LIB
+    if _LIB is None:
+        lib = cuda_build.load("probes")
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         ptrs = ctypes.POINTER(ctypes.c_void_p)
         lib.pr_tile.argtypes, lib.pr_tile.restype = [], i
         lib.pr_pair_merge.argtypes, lib.pr_pair_merge.restype = [vp, vp, vp, ll, ll, ll, i, vp], i
         lib.pr_tile_compact.argtypes, lib.pr_tile_compact.restype = [ptrs, ptrs, i, vp, ll, i, vp], i
         lib.pr_row_gather.argtypes, lib.pr_row_gather.restype = [vp, vp, vp, ll, ll, ll, i, ll, vp], i
-        lib._pr_typed = True
-    return lib
+        _LIB = lib
+    return _LIB
 
 
 def kernel_tile() -> int:

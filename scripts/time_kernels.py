@@ -13,8 +13,11 @@ kernels the tree runs there (chip_smoke.time_chunk_step: a tree before K8
 runs the plain torch chain); and ``probes``, D1-D7 (chip_smoke.phase_probes:
 the three probe harnesses traced, then each probe kernel at each launch
 shape of its harness against its plain version and the probe's NumPy
-check, timed, and at the edge and random shapes).  So one chip call can
-time two commits in turns (A, B, B, A):
+check, timed (row_gather also each call by CUDA events), at the edge and
+random shapes and on a side stream); and ``row_gather_host``, the host's
+microseconds a call of each piece of row_gather's launch path
+(row_gather_host below).  So one chip call can time two commits in turns
+(A, B, B, A):
 
     python3 scripts/time_kernels.py              # this checkout
     python3 scripts/time_kernels.py --root DIR   # another tree of the port
@@ -26,9 +29,10 @@ time two commits in turns (A, B, B, A):
 archive`` of another commit), which builds its kernels from its own
 ``csrc/``; the operands, checks and timing stay this checkout's.
 ``--kernels`` times only the named ones (chip_smoke.py's names,
-``chunk_step`` and ``probes``).  Prints
+``chunk_step``, ``probes`` and ``row_gather_host``).  Prints
 the card's name and power limit, chip_smoke.py's kernel lines, then each
-source's nvcc report (registers, spills).
+source's nvcc report (registers and spill bytes of each instance, then
+the report itself).
 """
 
 import argparse
@@ -36,6 +40,7 @@ import importlib.util
 import inspect
 import os
 import sys
+import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # The largest launch of K1 in chip_smoke.py's main path (its third
@@ -51,6 +56,44 @@ MAIN_LAUNCH = (2, 166_666_500, 97_222_223, 4_599_964, 55_555_500, 21_626_652)
 K8_PATH_LAUNCHES = {"main": (396_825, 100, 31, True, "keys"), "main_one": (396_825, 100, 31, True, "records"),
                     "mesh": (99_206, 100, 31, True, "keys"), "mesh_one": (99_206, 100, 31, True, "records"),
                     "mesh_spill": (24_801, 100, 31, True, "keys")}
+
+
+def row_gather_host(cs, device, reps=1000):
+    """Host microseconds a call of row_gather's wrapper and of each piece
+    of its launch path at D4's shape ([16, 128], one start, shift -3),
+    ``reps`` calls issued back to back with no synchronisation (after 100
+    unmeasured), beside torch.roll: the wrapper's checks (_check_rows), the
+    output's torch.empty, the current stream's handle both ways (the Stream
+    object's and the raw binding's), and the launch (the typed ctypes call
+    of the library).  Only names that every tree of the port has."""
+    import torch
+
+    from kmer_counter_tpu_torch.ops import probes
+
+    x = torch.zeros((16, 128), dtype=torch.int32, device=device)
+    s = torch.zeros(1, dtype=torch.int32, device=device)
+    out = torch.empty((1, 16, 128), dtype=torch.int32, device=device)
+    index = x.get_device()
+    lib = probes._lib()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    pieces = {"wrapper": lambda: probes.row_gather(x, s, 16, -3), "torch.roll": lambda: torch.roll(x, 3, 0),
+              "checks": lambda: probes._check_rows(x, s, 16),
+              "torch.empty": lambda: torch.empty((1, 16, 128), dtype=torch.int32, device=x.device),
+              "current_stream().cuda_stream": lambda: torch.cuda.current_stream(x.device).cuda_stream,
+              "raw stream handle": lambda: torch._C._cuda_getCurrentRawStream(index),
+              "launch": lambda: lib.pr_row_gather(x.data_ptr(), s.data_ptr(), out.data_ptr(), 16, 128, 1, 16, -3,
+                                                  stream)}
+    us = {}
+    for name, fn in pieces.items():
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        us[name] = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+    cs.log({"phase": "probes", "row_gather_host_us": us, "reps": reps})
 
 
 def main():
@@ -79,12 +122,15 @@ def main():
     cases = cs.load_test_cases()
     gen = torch.Generator(device=device).manual_seed(cs.SEED)
     names = args.kernels.split(",") if args.kernels else [
-        cs.SORT["name"], cs.K2["name"], cs.K1["name"], *cs.MERGES, cs.K8["name"], "chunk_step", "probes"]
+        cs.SORT["name"], cs.K2["name"], cs.K1["name"], *cs.MERGES, cs.K8["name"], "chunk_step", "probes",
+        "row_gather_host"]
     for name in names:
         if name == "chunk_step":
             cs.time_chunk_step(device)
         elif name == "probes":
             cs.phase_probes(device, cases)
+        elif name == "row_gather_host":
+            row_gather_host(cs, device)
         elif name == cs.K8["name"]:
             cs.k8_random_shapes(device, cases)
             for path, (R, L, k, canonical, mode) in K8_PATH_LAUNCHES.items():
@@ -106,8 +152,9 @@ def main():
             cs.merge_at_shape(cases, name, "main", MAIN_LAUNCH, gen, device)
         torch.cuda.empty_cache()
     for source in sorted(cuda_build.build_seconds):
-        cs.log(f"# {source}: nvcc {cuda_build.build_seconds[source]:.2f} s\n"
-               f"{cuda_build.build_log.get(source, '').strip()}")
+        report = cuda_build.build_log.get(source, "")
+        cs.log({"source": source, "nvcc_s": cuda_build.build_seconds[source], "instances": cs.ptxas_report(report)})
+        cs.log(f"# {source}: nvcc {cuda_build.build_seconds[source]:.2f} s\n{report.strip()}")
 
 
 if __name__ == "__main__":

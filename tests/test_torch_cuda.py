@@ -1125,9 +1125,13 @@ def test_extract_failed_launch_raises_and_never_falls_back(cuda, monkeypatch):
 
 # ---- D1-D7: the probe kernels (ops.probes, csrc/probes.cu) ---------------------
 
-# Output keys a block of pair_merge_kernel; rows a tile of tile_compact_kernel.
+# Output keys a block of pair_merge_kernel; rows a tile of tile_compact_kernel;
+# rows a part of its network (a CTA of the tile's cluster of eight) and the
+# CTA's threads (32 rows each).
 PROBE_MERGE_TILE = 2048
 PROBE_TILE = 65536
+PROBE_PART = PROBE_TILE // 8
+PROBE_NET_THREADS = PROBE_PART // 32
 
 
 def probe_keys(rng, shape, ascending=True):
@@ -1155,27 +1159,49 @@ def probe_merge_case(rng, G, ta, tb):
     return probe_keys(rng, (G, ta)), probe_keys(rng, (G, tb))
 
 
+# Live totals of the "residues" tiles: each residue mod 4 (the zero tail's
+# scalar head), below 4, and past one and two parts (a tail that begins
+# inside a later part).
+PROBE_RESIDUE_TOTALS = (1, 2, 3, 4, 2001, PROBE_PART + 1, PROBE_PART + 2, 2 * PROBE_PART + 3)
+
+
 def probe_tile_case(rng, n_ops, tiles, live):
     """(ops [n_ops, tiles*TILE] uint32, live [tiles*TILE] uint32): live is a
-    density, or "none", "all", or "edges" (each tile's first and last rows
-    live, and the last row of every 4096); a live flag is any nonzero word."""
+    density, or "none", "all", "edges" (each tile's first and last rows
+    live, and the last row of every 4096), "residues" (tile t has
+    PROBE_RESIDUE_TOTALS[t % 8] live rows, at random), "across" (runs of 78
+    live rows across each boundary between parts, 1% elsewhere) or
+    "last_part" (half the rows of each tile's last part, none before); a
+    live flag is any nonzero word."""
     n = tiles * PROBE_TILE
     ops = probe_keys(rng, (n_ops, n), ascending=False)
     flags = rng.integers(1, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    r = np.arange(n) % PROBE_TILE
     if live == "none":
         on = np.zeros(n, bool)
     elif live == "all":
         on = np.ones(n, bool)
     elif live == "edges":
-        r = np.arange(n) % PROBE_TILE
         on = (r == 0) | (r % 4096 == 4095)
+    elif live == "residues":
+        on = np.zeros(n, bool)
+        for t in range(tiles):
+            total = PROBE_RESIDUE_TOTALS[t % len(PROBE_RESIDUE_TOTALS)]
+            on[t * PROBE_TILE + rng.choice(PROBE_TILE, total, replace=False)] = True
+    elif live == "across":
+        d = r[:, None] - np.arange(PROBE_PART, PROBE_TILE, PROBE_PART)  # rows past each boundary
+        on = ((d >= -37) & (d < 41)).any(1) | (rng.random(n) < 0.01)
+    elif live == "last_part":
+        on = (r >= PROBE_TILE - PROBE_PART) & (rng.random(n) < 0.5)
     else:
         on = rng.random(n) < live
     return ops, np.where(on, flags, 0).astype(np.uint32)
 
 
 PROBE_TILE_CASES = {"none_live": (3, 2, "none"), "all_live": (3, 2, "all"), "tile_edges_live": (3, 3, "edges"),
-                    "probe_density": (3, 4, 0.03), "one_op": (1, 1, 0.5), "nine_ops": (9, 2, 0.97)}
+                    "probe_density": (3, 4, 0.03), "one_op": (1, 1, 0.5), "nine_ops": (9, 2, 0.97),
+                    "total_residues": (3, 8, "residues"), "run_across_parts": (3, 2, "across"),
+                    "last_part_only": (2, 2, "last_part")}
 
 
 # (R, W, starts, rows, shift): D4, D5, D6, then odd widths and counts,
@@ -1252,6 +1278,36 @@ def probe_gather_vs_plain(x, starts, rows, shift, device):
     np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32), x[idx])
 
 
+def probe_side_stream_vs_plain(device):
+    """row_gather and tile_compact (each mode) launched inside
+    torch.cuda.stream(side).  Their inputs are written on side after a spin
+    of tens of milliseconds, so a launch on any other stream would read them
+    unwritten (zeros); after side.synchronize() each result equals its
+    plain version's."""
+    from kmer_counter_tpu_torch.ops import probes
+
+    rng = np.random.default_rng(5)
+    x_np = probe_gather_case(rng, 64, 128)
+    ops_np, live_np = probe_tile_case(rng, 3, 2, 0.03)
+    src = [torch.from_numpy(a.view(np.int32).copy()).to(device) for a in (x_np, *ops_np, live_np)]
+    bufs = [torch.zeros_like(t) for t in src]
+    starts = torch.tensor([1, 9, 17, 33], dtype=torch.int32, device=device)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(device)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)
+        for buf, t in zip(bufs, src):
+            buf.copy_(t)
+        x, *ops, live = bufs
+        gathered = probes.row_gather(x, starts, 8, 0)
+        compacted = {mode: probes.tile_compact(ops, live, mode) for mode in probes.MODES}
+    side.synchronize()
+    x, *ops, live = src
+    assert torch.equal(gathered, probes.row_gather_reference(x, starts, 8, 0))
+    for mode, got in compacted.items():
+        assert torch.equal(got, probes.tile_compact_reference(ops, live, mode)), mode
+
+
 @pytest.mark.gpu
 def test_probe_tile_matches_case_tile(cuda):
     from kmer_counter_tpu_torch.ops import probes
@@ -1288,6 +1344,23 @@ def test_probe_kernels_random_shapes(cuda):
         probe_tile_vs_plain(*probe_tile_case(rng, n_ops, tiles, density), cuda)
     for R, W, starts, rows, shift in shapes["row_gather"]:
         probe_gather_vs_plain(probe_gather_case(rng, R, W), starts, rows, shift, cuda)
+
+
+@pytest.mark.gpu
+def test_probe_kernels_follow_the_current_stream(cuda):
+    probe_side_stream_vs_plain(cuda)
+
+
+@pytest.mark.gpu
+def test_stream_helper_returns_the_current_stream(cuda):
+    from kmer_counter_tpu_torch import cuda_build
+
+    index = torch.cuda.current_device()
+    assert cuda_build.current_stream(index) == torch.cuda.current_stream().cuda_stream
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        assert cuda_build.current_stream(index) == side.cuda_stream != torch.cuda.default_stream().cuda_stream
+    assert cuda_build.current_stream(index) == torch.cuda.default_stream().cuda_stream
 
 
 @pytest.mark.gpu

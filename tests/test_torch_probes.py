@@ -39,7 +39,8 @@ from kmer_counter_tpu_torch.ops.u32 import from_numpy, to_numpy
 from kmer_counter_tpu_torch.probes import ProbeFailed, experiments_bitonic_merge, experiments_mosaic_caps
 from kmer_counter_tpu_torch.probes import probe_compact_overhead
 
-from tests.test_torch_cuda import (PROBE_GATHER_CASES, PROBE_MERGE_TILE, PROBE_TILE, PROBE_TILE_CASES,
+from tests.test_torch_cuda import (PROBE_GATHER_CASES, PROBE_MERGE_TILE, PROBE_NET_THREADS, PROBE_PART, PROBE_TILE,
+                                   PROBE_TILE_CASES,
                                    probe_gather_case, probe_keys, probe_merge_case, probe_tile_case)
 
 CPU = torch.device("cpu")
@@ -344,33 +345,89 @@ def test_model_of_pair_merge_kernel_matches_plain(shape):
         np.testing.assert_array_equal(model_pair_merge(a, b_stored, desc), want)
 
 
-def model_tile_compact(ops, live, mode, threads=1024):
-    """tile_compact_kernel's cumsum and network: a tile in chunks of 4 rows
-    a thread, each thread's count scanned across the block, the chunk's
-    total carried to the next; network lists a chunk's live rows by rank
-    (shared memory) and copies them a rank a thread."""
+def model_tile_cumsum(ops, live, threads=1024):
+    """tile_compact_kernel's cumsum: a tile in chunks of 4 rows a thread,
+    each thread's dead count scanned across the block, the chunk's total
+    carried to the next."""
     out = np.zeros_like(ops)
     chunk = 4 * threads
     for base in range(0, live.size, PROBE_TILE):
         carry = 0
         for c in range(0, PROBE_TILE, chunk):
             rows = base + c + np.arange(chunk)
-            on = (live[rows] == 0) if mode == "cumsum" else (live[rows] != 0)
-            mine = on.reshape(threads, 4).sum(1)
+            on = (live[rows] == 0).reshape(threads, 4)
+            mine = on.sum(1)
             before = carry + np.concatenate([[0], np.cumsum(mine)[:-1]])
-            within = np.cumsum(on.reshape(threads, 4), 1) - on.reshape(threads, 4)  # before it in its thread
-            k = (before[:, None] + within).reshape(-1)
-            total = int(mine.sum())
-            if mode == "cumsum":
-                out[:, rows] = ops[:, rows] + k.astype(np.uint32)
-            else:  # the chunk's live rows listed by rank, then a thread a rank
-                s_rows = np.zeros(total, int)
-                s_rows[k[on] - carry] = rows[on] - base
-                out[:, base + carry + np.arange(total)] = ops[:, base + s_rows]
-            carry += total
-        if mode == "network":
-            out[:, base + carry : base + PROBE_TILE] = 0
+            within = np.cumsum(on, 1) - on  # before it in its thread
+            out[:, rows] = ops[:, rows] + (before[:, None] + within).reshape(-1).astype(np.uint32)
+            carry += int(mine.sum())
     return out
+
+
+def spread4(x):
+    """probes.cu spread4: bit k of a byte moved to bit 4k."""
+    x = (x | (x << 12)) & 0x000F000F
+    x = (x | (x << 6)) & 0x03030303
+    return (x | (x << 3)) & 0x11111111
+
+
+def model_warp_masks(on):
+    """probes.cu warp_masks: ``on`` [..., 1024] (a warp's rows live) to
+    [..., 32] mask words.  Load i brings word q of 16-byte word 32 i + l to
+    lane l; a ballot a load and word position; lane L takes byte L % 4 of
+    load L / 4's four ballots, spread to every fourth bit."""
+    w = on.reshape(*on.shape[:-1], 8, 32, 4).astype(np.int64)
+    ballots = (w << np.arange(32)[:, None]).sum(-2)  # [..., load, q]: bit l set if lane l's word q is live
+    lane = np.arange(32)
+    byte = (ballots[..., lane // 4, :] >> (8 * (lane % 4))[:, None]) & 0xFF
+    return sum(spread4(byte[..., q]) << q for q in range(4))
+
+
+def model_tile_network(ops, live, parts=PROBE_TILE // PROBE_PART, threads=PROBE_NET_THREADS, tail_lo=max):
+    """tile_compact_kernel's network: a cluster of ``parts`` CTAs a tile, a
+    CTA a part, a thread 32 consecutive rows held as a mask word (built by
+    warp_masks).  The block scan of the threads' popcounts ranks them in
+    their part; the parts' counts (each CTA's s_count, read by the whole
+    cluster) give each part its base rank and the tile's total; a live row
+    goes to base + thread's rank + popc(its mask below the row); each CTA
+    zeroes its part's rows at or past the total, a scalar head to a
+    multiple of 4, then 16-byte words (``tail_lo(total, part's first
+    row)`` is where a CTA's zeros begin).  Every output row must be written
+    exactly once: the live rows and the zero tails never overlap."""
+    n_ops, n = ops.shape
+    part = PROBE_TILE // parts
+    per = part // threads
+    assert per == 32 and threads % 32 == 0
+    out = np.zeros_like(ops)
+    writes = np.zeros(n, int)  # stores to each output row
+    bit = np.arange(per, dtype=np.int64)
+    for base in range(0, n, PROBE_TILE):
+        on = live[base : base + PROBE_TILE].reshape(parts, threads, per) != 0
+        mask = model_warp_masks(on.reshape(parts, threads // 32, 32 * per)).reshape(parts, threads)
+        assert np.array_equal(mask, (on.astype(np.int64) << bit).sum(-1))
+        pop = np.bitwise_count(mask).astype(np.int64)
+        count = pop.sum(1)  # s_count of each CTA
+        total = int(count.sum())
+        rank = (np.cumsum(pop, 1) - pop) + (np.cumsum(count) - count)[:, None]
+        below = np.bitwise_count(mask[..., None] & ((1 << bit) - 1)).astype(np.int64)
+        dst = base + (rank[..., None] + below)[on]
+        out[:, dst] = ops[:, base + np.flatnonzero(on)]
+        np.add.at(writes, dst, 1)
+        for c in range(parts):
+            lo, hi = tail_lo(total, c * part), (c + 1) * part
+            if lo < hi:
+                lo4 = (lo + 3) & ~3
+                assert lo4 <= hi and hi % 4 == 0
+                for a, b in ((lo, lo4), (lo4, hi)):  # the scalar head, then 16-byte words
+                    out[:, base + a : base + b] = 0
+                    writes[base + a : base + b] += 1
+    assert (writes == 1).all(), "an output row written twice or never"
+    return out
+
+
+def model_tile_compact(ops, live, mode):
+    """tile_compact_kernel's cumsum and network."""
+    return model_tile_cumsum(ops, live) if mode == "cumsum" else model_tile_network(ops, live)
 
 
 @pytest.mark.parametrize("name", sorted(PROBE_TILE_CASES))
@@ -379,6 +436,15 @@ def test_model_of_tile_compact_kernel_matches_plain(name):
     for mode in ("cumsum", "network"):
         want = to_numpy(probes.tile_compact([t32(v) for v in ops], t32(live), mode))
         np.testing.assert_array_equal(model_tile_compact(ops, live, mode), want, mode)
+
+
+def test_model_of_tile_network_catches_a_tail_zeroed_below_the_total():
+    """The model's write count finds the fault the cluster exchange guards
+    against: a CTA that zeroed its whole part would wipe live rows that
+    other parts place there."""
+    ops, live = probe_tile_case(np.random.default_rng(7), 3, 8, "residues")
+    with pytest.raises(AssertionError, match="written twice"):
+        model_tile_network(ops, live, tail_lo=lambda total, start: start)
 
 
 @pytest.mark.parametrize("name", sorted(PROBE_GATHER_CASES))
@@ -458,6 +524,26 @@ def test_wrappers_have_no_fallback_for_other_devices():
         probes.pair_merge(meta, meta, b_descending=True)
     with pytest.raises(RuntimeError, match="no kernel"):
         probes.row_gather(meta, meta[0, :1], 1, 0)
+
+
+def test_stream_helper_is_never_reached_for_cpu_tensors(monkeypatch):
+    """CPU tensors take the plain versions before any launch-path work: the
+    stream helper (a CUDA build's binding) is never called for them."""
+    from kmer_counter_tpu_torch import cuda_build
+
+    def no_stream(device_index):
+        raise AssertionError("the stream helper was called for CPU tensors")
+
+    monkeypatch.setattr(cuda_build, "current_stream", no_stream)
+    before = dict(probes.launches)
+    x = probe_gather_case(np.random.default_rng(1), 16, 128)
+    got = probes.row_gather(t32(x), torch.tensor([0], dtype=torch.int32), 16, -3)
+    np.testing.assert_array_equal(to_numpy(got)[0], np.roll(x, 3, 0))
+    ops, live = probe_tile_case(np.random.default_rng(1), 2, 1, 0.03)
+    for mode in probes.MODES:
+        got = probes.tile_compact([t32(v) for v in ops], t32(live), mode)
+        np.testing.assert_array_equal(to_numpy(got), probe_compact_overhead.expected(mode, ops, live))
+    assert probes.launches == before
 
 
 def test_tile_compact_refuses_what_the_kernel_does_not_take():
