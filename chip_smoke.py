@@ -2318,7 +2318,7 @@ def probe_at_shape(d, shape, device):
     del got, want
     ms, plain_ms, library_ms = in_turns(kernel, plain, library, kernel_reps=reps, plain_reps=max(3, reps // 5))
     out = {**timing(0, ms, plain_ms, cost, library_ms), "device_kernels": traced_kernels(kernel)}
-    if wrapper == "row_gather":
+    if wrapper in ("row_gather", "pair_merge"):
         each = sorted(cuda_ms_each(kernel, reps))
         out["per_call_ms"] = {"min": each[0], "median": each[len(each) // 2], "max": each[-1]}
     return out
@@ -2327,12 +2327,18 @@ def probe_at_shape(d, shape, device):
 def probe_kernel_checks(device, cases):
     """Each probe kernel against its plain version, bit-exact: the edge
     cases of tests/test_torch_cuda.py (the probes' shapes, G = 1, lengths
-    off the block's range, keys 0 and 0xFFFFFFFF, D1's no live row, all
-    live, live last rows) and probe_random_shapes."""
+    off the block's range, rows off the 16-byte grid, keys 0 and
+    0xFFFFFFFF, pairs of one or two values, A and B starting 1-3 words into
+    their buffers, D1's no live row, all live, live last rows) and
+    probe_random_shapes."""
     import numpy as np
 
     for shape in cases.PROBE_MERGE_SHAPES:
         cases.probe_merge_vs_plain(*cases.probe_merge_case(np.random.default_rng(sum(shape)), *shape), device)
+    for _, case in sorted(cases.PROBE_MERGE_TIE_CASES.items()):
+        cases.probe_merge_vs_plain(*cases.probe_tie_case(np.random.default_rng(SEED), *case), device)
+    for start in (1, 2, 3):
+        cases.probe_merge_vs_plain(*cases.probe_merge_case(np.random.default_rng(start), 3, 2050, 2046), device, start)
     for name in sorted(cases.PROBE_TILE_CASES):
         cases.probe_tile_vs_plain(*cases.probe_tile_case(np.random.default_rng(SEED), *cases.PROBE_TILE_CASES[name]),
                                   device)
@@ -2350,7 +2356,9 @@ def probe_kernel_checks(device, cases):
         cases.probe_gather_vs_plain(cases.probe_gather_case(rng, R, W), starts, rows, shift, device)
     cases.probe_side_stream_vs_plain(device)
     log({"phase": "probes", "bit_exact": True, "side_stream": True,
-         "edge_cases": {"pair_merge": len(cases.PROBE_MERGE_SHAPES), "tile_compact": sorted(cases.PROBE_TILE_CASES),
+         "edge_cases": {"pair_merge": len(cases.PROBE_MERGE_SHAPES),
+                        "pair_merge_ties": sorted(cases.PROBE_MERGE_TIE_CASES), "pair_merge_row_starts": [1, 2, 3],
+                        "tile_compact": sorted(cases.PROBE_TILE_CASES),
                         "row_gather": sorted(cases.PROBE_GATHER_CASES)},
          "random_shapes": {k: len(v) for k, v in shapes.items()}})
 

@@ -15,23 +15,36 @@
 // merge, a block scan and an indexed copy.
 //
 // What bounds them: memory.  Each reads its inputs once and writes its
-// output once with next to no arithmetic; at the probes' shapes D2-D7 move
-// 8 KB to 1 MB and are bound by the launch, D1 moves 0.6-1 GB (576 tiles
+// output once with next to no arithmetic; at the probes' shapes D2 and
+// D4-D7 move 8 KB to 1 MB and are bound by the launch, D3 moves 8 MB and
+// D1 0.6-1 GB (576 tiles
 // of 65,536 rows, 3 operands).  D1's network writes 97% of its bytes as
 // the zero tail at 3% live, so it is built to stream that tail: short
 // CTAs (an eighth of a tile each) with no serial chain of chunks.
 //
-// pair_merge_kernel<kBDesc>: G pairs of sorted uint32 runs A (ta keys) and
-// B (tb keys, stored descending when kBDesc) into sort(A ++ B).  A block
-// takes kMergeTile consecutive output diagonals of one pair (so a pair
-// longer than a block, D7's 131,072 keys, is spread over blocks); two
-// threads find the merge-path splits of its first and last diagonal in
-// device memory (lanes::merge_path_split), the block stages its A range and
-// its B range (ascending) in shared memory, each thread merges kMergeItems
-// diagonals from its own split there into a shared output tile, and the
-// block writes the tile out coalesced.  Keys only: equal keys are
-// interchangeable, but every split takes A first on ties, so the blocks
-// partition the merge exactly.
+// pair_merge_kernel<S, kBDesc>: G pairs of sorted uint32 runs A (ta keys)
+// and B (tb keys, stored descending when kBDesc) into sort(A ++ B).  A
+// block takes a tile of S::kTile output words of one pair, the tiles laid
+// on the output's 16-byte grid: 2048 words where the pair fits one tile
+// (D2, D3), else 1024 (D7's 131,072 keys: 128 blocks).  At the probes'
+// shapes the block's chain of dependent steps, not bytes, sets its pace,
+// so each step is cut:
+// - the split: warp 0 finds the merge-path split of the tile's first
+//   diagonal and warp 1 of its last, each by a 32-ary ballot search over
+//   device memory (warp_split: log32 rounds of loads, not log2); a pair
+//   that fits one tile searches nothing;
+// - the staging: the block's A range and B range go into padded
+//   shared-memory tiles in 16-byte loads (a B stored descending reversed in
+//   registers), the head and tail of a range a word at a time;
+// - the merge: each thread finds its own split in shared memory and merges
+//   S::kItems outputs, reading the next key of both runs at each step (no
+//   branch), into the padded output tile; a warp's staging stores, output
+//   loads and (where its row starts on the grid) merge stores each fall in
+//   32 distinct banks;
+// - the output: 16-byte stores, the head and tail a word at a time.
+// Keys only: equal keys are interchangeable, but every split takes A first
+// on ties (lanes::merge_path_split's rule), so the blocks partition the
+// merge exactly.
 //
 // tile_compact_kernel<kMode>, a tile being kTile = 65,536 rows:
 // - copy: a block a tile, 16-byte copies.
@@ -75,54 +88,184 @@ using lanes::OutOps;
 
 // ---- pair_merge_kernel -------------------------------------------------------
 
-constexpr int kMergeThreads = 256;
-constexpr int kMergeItems = 8;
-constexpr int kMergeTile = kMergeThreads * kMergeItems;  // output keys a block
+// A block of kThreads threads merging kItems outputs each.
+template <int kThreads_, int kItems_>
+struct MergeShape {
+  static constexpr int kThreads = kThreads_, kItems = kItems_;
+  static constexpr int kTile = kThreads * kItems;  // output words a block
+  // A staged range (at most kTile keys) starts up to 31 words into its
+  // tile (stage_store) and spans at most kTile / 4 + 2 16-byte chunks.
+  static constexpr int kStageWords = lanes::padded(kTile + 32);
+  static constexpr int kStageIters = (kTile / 4 + 2 + kThreads - 1) / kThreads;
+};
+// A pair that fits one block needs no split search and takes the wider
+// block; a pair spread over blocks pays for the searches anyway, and
+// narrower tiles give it twice the blocks, each with half the chain.
+using FitShape = MergeShape<256, 8>;
+using SpreadShape = MergeShape<256, 4>;
 
-template <bool kBDesc>
-__global__ void __launch_bounds__(kMergeThreads)
+// The word of its 16-byte chunk that p points at.
+__host__ __device__ __forceinline__ int word_in_chunk(const void* p) { return (int)(((uintptr_t)p >> 2) & 3u); }
+
+__device__ __forceinline__ uint32_t word(const uint4& x, int q) {
+  return q == 0 ? x.x : (q == 1 ? x.y : (q == 2 ? x.z : x.w));
+}
+
+// lanes::merge_path_split of diagonal d in the merge of A (ta keys, a_at(i)
+// the i-th) and B (tb keys, b_at(j) the j-th smallest) in device memory,
+// computed by a whole warp: each round, lane k probes the last candidate
+// of the k-th of 32 equal slices of the candidates; "A <= B" holds up to
+// the split and not after it, so the count of the ballot names the slice
+// that holds it.  log32 rounds of dependent loads, not log2: four at
+// 65,536 keys a side.  Every lane returns the split.
+template <class AAt, class BAt>
+__device__ __forceinline__ long long warp_split(long long d, long long ta, long long tb, AAt a_at, BAt b_at) {
+  const int lane = threadIdx.x & 31;
+  long long lo = d > tb ? d - tb : 0, hi = d < ta ? d : ta;
+  while (lo < hi) {
+    const long long step = (hi - lo + 31) >> 5;
+    const long long i = lo + (lane + 1) * step - 1;
+    const int c = __popc(__ballot_sync(0xFFFFFFFFu, i < hi && a_at(i) <= b_at(d - 1 - i)));
+    const long long end = lo + (c + 1) * step - 1;
+    lo += c * step;
+    hi = end < hi ? end : hi;
+  }
+  return lo;
+}
+
+// Keys [0, len) of p (device memory) into registers, by 16-byte chunks:
+// chunk c is the c-th from the one p starts in, and the thread takes
+// chunks threadIdx.x + i * S::kThreads into w[i].  A whole chunk is one
+// 16-byte load; the range's first and last (a head or tail of up to 3
+// keys) move a word at a time, and no word outside the range is read.
+template <class S>
+__device__ __forceinline__ void stage_load(const uint32_t* p, int len, uint4 (&w)[S::kStageIters]) {
+  const int h = word_in_chunk(p), chunks = (h + len + 3) >> 2;
+#pragma unroll
+  for (int it = 0; it < S::kStageIters; ++it) {
+    const int c = (int)threadIdx.x + it * S::kThreads, k0 = 4 * c - h;  // k0: the key in word 0
+    if (c < chunks) {
+      if (k0 >= 0 && k0 + 4 <= len) {
+        w[it] = __ldg(reinterpret_cast<const uint4*>(p + k0));
+      } else {
+        uint32_t v[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[q] = k0 + q >= 0 && k0 + q < len ? __ldg(p + k0 + q) : 0u;
+        w[it] = make_uint4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  }
+}
+
+// stage_load's keys into the padded tile t: key k at index f + k or, kRev,
+// at f + len - 1 - k (a B stored descending turned ascending: each chunk's
+// four keys reversed in registers).  f puts a chunk's keys on four indices
+// from a multiple of 4, and a warp's 32 chunks on 128 indices from a
+// multiple of 32, so that the warp's stores of one word of its chunks hit
+// 32 distinct banks.  Returns f.
+template <class S, bool kRev>
+__device__ __forceinline__ int stage_store(const uint32_t* p, int len, const uint4 (&w)[S::kStageIters],
+                                           uint32_t* t) {
+  const int h = word_in_chunk(p), chunks = (h + len + 3) >> 2;
+  const int f = kRev ? -(h + len) & 31 : h;
+#pragma unroll
+  for (int it = 0; it < S::kStageIters; ++it) {
+    const int c = (int)threadIdx.x + it * S::kThreads, k0 = 4 * c - h;
+    if (c < chunks) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int k = k0 + q;
+        if (k >= 0 && k < len) t[lanes::pad(kRev ? f + len - 1 - k : f + k)] = word(w[it], q);
+      }
+    }
+  }
+  return f;
+}
+
+template <class S, bool kBDesc>
+__global__ void __launch_bounds__(S::kThreads)
     pair_merge_kernel(const uint32_t* a, const uint32_t* b, uint32_t* out, long long ta, long long tb,
-                      long long tiles) {
-  __shared__ uint32_t s_in[kMergeTile];   // the block's A range, then its B range ascending
-  __shared__ uint32_t s_out[kMergeTile];  // the block's merged keys
+                      int tiles) {
+  __shared__ uint32_t s_a[S::kStageWords];  // the block's A range
+  __shared__ uint32_t s_b[S::kStageWords];  // its B range, ascending
+  __shared__ uint32_t s_out[lanes::padded(S::kTile)];  // its tile of the output
   __shared__ long long s_split[2];
-  const long long g = blockIdx.x / tiles;
+  const int g = (int)blockIdx.x / tiles;  // the pair
   const long long n = ta + tb;
-  const long long d0 = (blockIdx.x - g * tiles) * kMergeTile;
-  const long long d1 = d0 + kMergeTile < n ? d0 + kMergeTile : n;
   const uint32_t* pa = a + g * ta;
   const uint32_t* pb = b + g * tb;
-  // B's j-th smallest key.
-  auto b_at = [&](long long j) { return kBDesc ? pb[tb - 1 - j] : pb[j]; };
-  if (threadIdx.x < 2) {
-    s_split[threadIdx.x] = lanes::merge_path_split(threadIdx.x == 0 ? d0 : d1, ta, tb,
-                                                   [&](long long i, long long j) { return pa[i] <= b_at(j); });
+  uint32_t* po = out + g * n;
+  // The block's tile is output words [e0, e0 + S::kTile) of the row, on
+  // the output's 16-byte grid (a row that starts off it begins inside its
+  // first tile); it merges the diagonals [d0, d1) of the tile in the row.
+  const long long e0 = (long long)((int)blockIdx.x - g * tiles) * S::kTile - word_in_chunk(po);
+  const long long d0 = e0 > 0 ? e0 : 0;
+  const long long d1 = e0 + S::kTile < n ? e0 + S::kTile : n;
+  if (d0 >= d1) return;  // past the row's end: the grid has room for rows off the grid
+  auto a_at = [&](long long i) { return __ldg(pa + i); };
+  auto b_at = [&](long long j) { return __ldg(kBDesc ? pb + (tb - 1 - j) : pb + j); };
+  const int warp = (int)threadIdx.x >> 5;
+  if (warp < 2) {  // warp 0 finds where the tile starts in A, warp 1 where it ends
+    const long long s = warp_split(warp ? d1 : d0, ta, tb, a_at, b_at);
+    if ((threadIdx.x & 31) == 0) s_split[warp] = s;
   }
   __syncthreads();
+  const int len = (int)(d1 - d0);
   const long long a0 = s_split[0], b0 = d0 - a0;
-  const int la = (int)(s_split[1] - a0), lb = (int)(d1 - d0) - la;
-  for (int i = threadIdx.x; i < la; i += kMergeThreads) s_in[i] = pa[a0 + i];
-  for (int j = threadIdx.x; j < lb; j += kMergeThreads) s_in[la + j] = b_at(b0 + j);
+  // Clamped so that runs that are not sorted (the contract, unchecked)
+  // merge wrong but read and write inside their rows and tiles.
+  const long long sa1 = s_split[1] - a0;
+  const int la = sa1 < 0 ? 0 : (sa1 > len ? len : (int)sa1), lb = len - la;
+  const uint32_t* src_a = pa + a0;
+  const uint32_t* src_b = kBDesc ? pb + (tb - b0 - lb) : pb + b0;  // B's range as stored
+  uint4 wa[S::kStageIters], wb[S::kStageIters];
+  stage_load<S>(src_a, la, wa);
+  stage_load<S>(src_b, lb, wb);
+  const int fa = stage_store<S, false>(src_a, la, wa, s_a);
+  const int fb = stage_store<S, kBDesc>(src_b, lb, wb, s_b);
   __syncthreads();
 
-  const int len = la + lb;
-  const int t0 = threadIdx.x * kMergeItems;
-  if (t0 < len) {
-    const uint32_t* sb = s_in + la;
-    int ia = lanes::merge_path_split(t0, la, lb, [&](int i, int j) { return s_in[i] <= sb[j]; });
-    int ib = t0 - ia;
-    const int cnt = len - t0 < kMergeItems ? len - t0 : kMergeItems;
+  // Thread t merges the tile's words [kItems t, kItems (t + 1)) that lie
+  // in its range [lo, hi): a warp's stores of one q fall in 32 distinct
+  // banks.
+  const int lo = (int)(d0 - e0), hi = lo + len;
+  const int t0 = S::kItems * (int)threadIdx.x;
+  const int first = t0 > lo ? t0 : lo;
+  const int cnt = (t0 + S::kItems < hi ? t0 + S::kItems : hi) - first;
+  if (cnt > 0) {
+    auto sa = [&](int i) { return s_a[lanes::pad(fa + i)]; };
+    auto sb = [&](int j) { return s_b[lanes::pad(fb + j)]; };
+    int ia = lanes::merge_path_split(first - lo, la, lb, [&](int i, int j) { return sa(i) <= sb(j); });
+    int ib = first - lo - ia;
+    // Each step reads the next key of both runs (a run's word past its end
+    // lies inside its tile and is never taken), so no lane branches.
 #pragma unroll
-    for (int q = 0; q < kMergeItems; ++q) {
+    for (int q = 0; q < S::kItems; ++q) {
       if (q < cnt) {
-        const bool take_a = ib >= lb || (ia < la && s_in[ia] <= sb[ib]);
-        s_out[t0 + q] = take_a ? s_in[ia++] : sb[ib++];
+        const uint32_t ka = sa(ia), kb = sb(ib);
+        const bool take_a = ib >= lb || (ia < la && ka <= kb);
+        s_out[lanes::pad(first + q)] = take_a ? ka : kb;
+        ia += take_a;
+        ib += !take_a;
       }
     }
   }
   __syncthreads();
-  uint32_t* po = out + g * n + d0;
-  for (int i = threadIdx.x; i < len; i += kMergeThreads) po[i] = s_out[i];
+
+  // Chunk c of the tile, words [4c, 4c + 4), is 16-byte aligned in the
+  // output: one 16-byte store when it lies in [lo, hi), else (the range's
+  // first and last chunk) a word at a time.
+  for (int i = 4 * (int)threadIdx.x; i < hi; i += 4 * S::kThreads) {
+    if (i >= lo && i + 4 <= hi) {
+      *reinterpret_cast<uint4*>(po + (e0 + i)) = make_uint4(s_out[lanes::pad(i)], s_out[lanes::pad(i + 1)],
+                                                            s_out[lanes::pad(i + 2)], s_out[lanes::pad(i + 3)]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (i + q >= lo && i + q < hi) po[e0 + i + q] = s_out[lanes::pad(i + q)];
+      }
+    }
+  }
 }
 
 // ---- tile_compact_kernel -----------------------------------------------------
@@ -171,10 +314,6 @@ __device__ __forceinline__ int block_exclusive_scan(int x, int* s_warp, int& tot
   total = s_warp[kWarps - 1];
   __syncthreads();  // s_warp is reused by the next chunk
   return before + inc - x;
-}
-
-__device__ __forceinline__ uint32_t word(const uint4& x, int q) {
-  return q == 0 ? x.x : (q == 1 ? x.y : (q == 2 ? x.z : x.w));
 }
 
 // The operand loops below run over the most lanes there can be, unrolled,
@@ -430,6 +569,22 @@ cudaError_t launch_network(const Ops& ins, const OutOps& outs, int n_ops, const 
   return cudaLaunchKernelEx(&cfg, tile_compact_kernel<kNetwork>, ins, outs, n_ops, lv);
 }
 
+template <class S>
+int launch_pair_merge(const void* a, const void* b, void* out, long long G, long long ta, long long tb, int b_desc,
+                      long long shift, cudaStream_t s) {
+  const long long tiles = (ta + tb + shift + S::kTile - 1) / S::kTile;
+  if (G * tiles > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  const auto* pa = static_cast<const uint32_t*>(a);
+  const auto* pb = static_cast<const uint32_t*>(b);
+  auto* po = static_cast<uint32_t*>(out);
+  if (b_desc) {
+    pair_merge_kernel<S, true><<<(unsigned)(G * tiles), S::kThreads, 0, s>>>(pa, pb, po, ta, tb, (int)tiles);
+  } else {
+    pair_merge_kernel<S, false><<<(unsigned)(G * tiles), S::kThreads, 0, s>>>(pa, pb, po, ta, tb, (int)tiles);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -441,18 +596,15 @@ int pr_tile() { return kTile; }
 // Returns a cudaError_t.
 int pr_pair_merge(const void* a, const void* b, void* out, long long G, long long ta, long long tb, int b_desc,
                   void* stream) {
-  const long long tiles = (ta + tb + kMergeTile - 1) / kMergeTile;
-  if (G < 1 || ta < 0 || tb < 0 || tiles < 1 || G * tiles > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  const auto* pa = static_cast<const uint32_t*>(a);
-  const auto* pb = static_cast<const uint32_t*>(b);
-  auto* po = static_cast<uint32_t*>(out);
+  const long long n = ta + tb;
+  if (G < 1 || ta < 0 || tb < 0 || n < 1) return (int)cudaErrorInvalidValue;
+  // A row's tiles lie on the output's 16-byte grid: a row that starts k
+  // words past it needs room for k more keys (all rows start where out
+  // does when n is a multiple of 4).
+  const long long shift = n % 4 ? 3 : word_in_chunk(out);
   auto s = static_cast<cudaStream_t>(stream);
-  if (b_desc) {
-    pair_merge_kernel<true><<<(unsigned)(G * tiles), kMergeThreads, 0, s>>>(pa, pb, po, ta, tb, tiles);
-  } else {
-    pair_merge_kernel<false><<<(unsigned)(G * tiles), kMergeThreads, 0, s>>>(pa, pb, po, ta, tb, tiles);
-  }
-  return (int)cudaGetLastError();
+  return n + shift <= FitShape::kTile ? launch_pair_merge<FitShape>(a, b, out, G, ta, tb, b_desc, shift, s)
+                                      : launch_pair_merge<SpreadShape>(a, b, out, G, ta, tb, b_desc, shift, s);
 }
 
 // n_ops operand lanes and n_ops output lanes of n rows, and the live

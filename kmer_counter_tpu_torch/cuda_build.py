@@ -10,8 +10,8 @@ at import.  Each source has its own lock, so different sources may build
 at once, from different threads: a caller that needs every kernel (as
 chip_smoke.py does) then waits for the slowest nvcc, not for the sum.
 
-``current_stream`` is the launch path's stream handle, for wrappers whose
-kernels are short enough that the host's work per call sets their pace.
+``current_stream`` is every wrapper's stream handle: a launch path short
+enough for kernels whose time the host's work per call would otherwise set.
 """
 
 from __future__ import annotations

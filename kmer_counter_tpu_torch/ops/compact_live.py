@@ -36,6 +36,7 @@ MAX_OPS = 9
 # counted once per call on a CUDA tensor with an output row; the plain
 # version does not count).
 launches = 0
+_LIB = None  # the typed library, once built and loaded (_lib)
 
 
 def _check(operands: Sequence[torch.Tensor], live: torch.Tensor, num_keys: int, out_rows: int):
@@ -92,16 +93,19 @@ def compact_live_reference(
 
 
 def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load("compact_live")
-    if not getattr(lib, "_cl_typed", False):
+    """The library with its entry points typed: built and loaded at the
+    first call, then kept in _LIB (no lock on the launch path)."""
+    global _LIB
+    if _LIB is None:
+        lib = cuda_build.load("compact_live")
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         ptrs = ctypes.POINTER(ctypes.c_void_p)
         lib.cl_tile_rows.argtypes, lib.cl_tile_rows.restype = [], i
         lib.cl_num_tiles.argtypes, lib.cl_num_tiles.restype = [vp, ll], ll
         lib.cl_compact.argtypes = [ptrs, ptrs, i, i, vp, ll, ll, vp, vp]
         lib.cl_compact.restype = i
-        lib._cl_typed = True
-    return lib
+        _LIB = lib
+    return _LIB
 
 
 def tile_rows() -> int:
@@ -118,7 +122,7 @@ def _launch(operands, live, num_keys, out_rows):
     out = torch.empty((len(operands), out_rows), dtype=torch.int32, device=live.device)
     # The look-back's status words, one per tile, then the tile ticket: zero.
     scratch = torch.zeros(lib.cl_num_tiles(live.data_ptr(), n) + 1, dtype=torch.int64, device=live.device)
-    stream = torch.cuda.current_stream(live.device).cuda_stream
+    stream = cuda_build.current_stream(live.get_device())
     err = lib.cl_compact(ptr_array(operands), ptr_array(list(out.unbind(0))), len(operands),
                          num_keys, live.data_ptr(), n, out_rows, scratch.data_ptr(), stream)
     if err:

@@ -42,6 +42,7 @@ MAX_K = 128
 # Kernel launches made by the two wrappers (one per call on a CUDA tensor
 # with at least one window; the plain versions do not count).
 launches = 0
+_LIB = None  # the typed library, once built and loaded (_lib)
 
 
 def _check(reads: torch.Tensor, k: int) -> int:
@@ -137,14 +138,17 @@ def extract_chunk_keys_reference(reads: torch.Tensor, k: int, canonical: bool = 
 
 
 def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load("fused_extract")
-    if not getattr(lib, "_fx_typed", False):
+    """The library with its entry points typed: built and loaded at the
+    first call, then kept in _LIB (no lock on the launch path)."""
+    global _LIB
+    if _LIB is None:
+        lib = cuda_build.load("fused_extract")
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.fx_tile_bases.argtypes, lib.fx_tile_bases.restype = [], i
         lib.fx_extract.argtypes = [vp, ll, ll, i, i, i, vp, ll, ll, vp, vp]
         lib.fx_extract.restype = i
-        lib._fx_typed = True
-    return lib
+        _LIB = lib
+    return _LIB
 
 
 def tile_bases() -> int:
@@ -156,7 +160,7 @@ def _launch(reads, k, canonical, keys, dst, off, allt):
     global launches
     lib = _lib()
     R, L = reads.shape
-    stream = torch.cuda.current_stream(reads.device).cuda_stream
+    stream = cuda_build.current_stream(reads.get_device())
     err = lib.fx_extract(reads.data_ptr(), R, L, k, int(canonical), int(keys), dst.data_ptr(), dst.stride(0), off,
                          None if allt is None else allt.data_ptr(), stream)
     if err:

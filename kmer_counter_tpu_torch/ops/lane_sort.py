@@ -32,6 +32,7 @@ MAX_KEYS = 8
 # Sorts launched through ``sort_ops`` (one per call on a non-empty CUDA
 # tensor; the plain version does not count).
 launches = 0
+_LIB = None  # the typed library, once built and loaded (_lib)
 
 
 def _check(keys: torch.Tensor, payload: torch.Tensor):
@@ -67,15 +68,18 @@ def sort_ops_reference(keys: torch.Tensor, payload: torch.Tensor) -> tuple[torch
 
 
 def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load("lane_sort")
-    if not getattr(lib, "_ls_typed", False):
+    """The library with its entry points typed: built and loaded at the
+    first call, then kept in _LIB (no lock on the launch path)."""
+    global _LIB
+    if _LIB is None:
+        lib = cuda_build.load("lane_sort")
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         ptrs = ctypes.POINTER(ctypes.c_void_p)
         lib.ls_tile_rows.argtypes, lib.ls_tile_rows.restype = [i], i
         lib.ls_merge_passes.argtypes, lib.ls_merge_passes.restype = [i, ll], i
         lib.ls_sort.argtypes, lib.ls_sort.restype = [ptrs, ptrs, ptrs, i, ll, vp], i
-        lib._ls_typed = True
-    return lib
+        _LIB = lib
+    return _LIB
 
 
 def tile_rows(num_keys: int) -> int:
@@ -104,7 +108,7 @@ def _launch(keys: torch.Tensor, payload: torch.Tensor):
     if lib.ls_merge_passes(NL, n):
         bufs.append(torch.empty_like(bufs[0]))
     buf_ptrs = [ptr_array(list(b.unbind(0))) for b in bufs]
-    stream = torch.cuda.current_stream(keys.device).cuda_stream
+    stream = cuda_build.current_stream(keys.get_device())
     cur = lib.ls_sort(ptr_array([*keys.unbind(0), payload]), buf_ptrs[0], buf_ptrs[-1], NL, n, stream)
     if cur < 0:
         raise RuntimeError(f"lane_sort launch failed: cudaError {-cur}")

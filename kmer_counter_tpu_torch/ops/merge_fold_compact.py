@@ -38,6 +38,7 @@ MAX_KEYS = 8
 # Kernel launches through ``merge_fold_compact`` (one per call on a CUDA
 # tensor; the plain version does not count).
 launches = 0
+_LIB = None  # the typed library, once built and loaded (_lib)
 
 
 def check_operands(a_ops: Sequence[torch.Tensor], b_ops: Sequence[torch.Tensor], num_keys: int):
@@ -131,8 +132,11 @@ LIVE_TOTAL_WORD = 3
 
 
 def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load("merge_fold_compact")
-    if not getattr(lib, "_mfc_typed", False):
+    """The library with its entry points typed: built and loaded at the
+    first call, then kept in _LIB (no lock on the launch path)."""
+    global _LIB
+    if _LIB is None:
+        lib = cuda_build.load("merge_fold_compact")
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         ptrs = ctypes.POINTER(ctypes.c_void_p)
         lib.mfc_num_variants.argtypes, lib.mfc_num_variants.restype = [], i
@@ -147,8 +151,8 @@ def _lib() -> ctypes.CDLL:
         lib.mfc_write.restype = i
         if lib.mfc_num_variants() != NUM_VARIANTS:
             raise RuntimeError("merge_fold_compact.cu and its wrapper disagree on its layout")
-        lib._mfc_typed = True
-    return lib
+        _LIB = lib
+    return _LIB
 
 
 def tile_rows(num_keys: int) -> int:
@@ -181,7 +185,7 @@ def launch(variant: int, a_ops, b_ops, num_keys: int, out_rows: int | None = Non
     out = torch.empty((NL + 1, out_rows), dtype=torch.int32, device=device)
     if n == 0:
         return out, (torch.zeros((), dtype=torch.int64, device=device) if variant == K1 else None)
-    stream = torch.cuda.current_stream(device).cuda_stream
+    stream = cuda_build.current_stream(a_ops[0].get_device())
     a_ptrs, b_ptrs, out_ptrs = ptr_array(a_ops), ptr_array(b_ops), ptr_array(list(out.unbind(0)))
     if variant != K5:
         scratch = torch.zeros(lib.mfc_fold_scratch_words(NL, n), dtype=torch.int64, device=device)

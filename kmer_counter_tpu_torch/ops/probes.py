@@ -31,12 +31,12 @@ tensor runs the kernel, a CPU tensor the plain version beside it; on any
 other device, or when the kernel cannot be built or launched, the wrapper
 raises.  There is no fallback.
 
-``row_gather``'s kernel takes 1.5-1.7 us on the card at the probes' shapes,
-so the host's work per call sets its pace; its launch path is kept short:
-checks that read cheap tensor attributes (no ``torch.device`` built, a
-message only on failure), the typed library kept in a module global once
-loaded (no lock), and the stream's raw handle
-(``cuda_build.current_stream``).  ``tile_compact`` takes the same path.
+``row_gather``'s and ``pair_merge``'s kernels take 1.5-7 us on the card at
+the probes' shapes, so the host's work per call sets their pace; the
+launch path of all three wrappers is kept short: checks that read cheap
+tensor attributes (no ``torch.device`` built, a message only on failure),
+the typed library kept in a module global once loaded (no lock), and the
+stream's raw handle (``cuda_build.current_stream``).
 """
 
 from __future__ import annotations
@@ -89,12 +89,12 @@ def pair_merge(a: torch.Tensor, b: torch.Tensor, *, b_descending: bool) -> torch
     _int32_on_one_device([a, b], "a and b")
     if a.dim() != 2 or b.dim() != 2 or a.shape[0] != b.shape[0]:
         raise ValueError(f"a and b must be [G, Ta] and [G, Tb], got {tuple(a.shape)} and {tuple(b.shape)}")
-    if _device_kind(a, "pair_merge") == "cpu":
+    if not a.is_cuda and _device_kind(a, "pair_merge") == "cpu":
         return pair_merge_reference(a, b, b_descending=b_descending)
     out = torch.empty((a.shape[0], a.shape[1] + b.shape[1]), dtype=torch.int32, device=a.device)
     if out.numel():
         err = _lib().pr_pair_merge(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0], a.shape[1],
-                                   b.shape[1], int(bool(b_descending)), _stream(a))
+                                   b.shape[1], int(bool(b_descending)), cuda_build.current_stream(a.get_device()))
         _launched("pair_merge", err)
     return out
 
@@ -222,10 +222,6 @@ def _lib() -> ctypes.CDLL:
 def kernel_tile() -> int:
     """D1's tile in the CUDA source (builds it if needed)."""
     return _lib().pr_tile()
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _launched(name: str, err: int) -> None:

@@ -13,24 +13,25 @@ kernels the tree runs there (chip_smoke.time_chunk_step: a tree before K8
 runs the plain torch chain); and ``probes``, D1-D7 (chip_smoke.phase_probes:
 the three probe harnesses traced, then each probe kernel at each launch
 shape of its harness against its plain version and the probe's NumPy
-check, timed (row_gather also each call by CUDA events), at the edge and
-random shapes and on a side stream); and ``row_gather_host``, the host's
-microseconds a call of each piece of row_gather's launch path
-(row_gather_host below).  So one chip call can time two commits in turns
-(A, B, B, A):
+check, timed (row_gather and pair_merge also each call by CUDA events),
+at the edge and random shapes and on a side stream; then
+pair_merge_kernel's launch floor, its device time at one key); and
+``row_gather_host`` and ``pair_merge_host``, the host's microseconds a
+call of each piece of that wrapper's launch path (launch_path_host
+below).  So one chip call can time two commits in turns (A, B, B, A):
 
     python3 scripts/time_kernels.py              # this checkout
     python3 scripts/time_kernels.py --root DIR   # another tree of the port
     python3 scripts/time_kernels.py --kernels merge_fold_compact,merge_sorted_runs_fold_bitonic
     python3 scripts/time_kernels.py --kernels chunk_step --root DIR
-    python3 scripts/time_kernels.py --kernels probes --root DIR
+    python3 scripts/time_kernels.py --kernels probes,pair_merge_host --root DIR
 
 ``--root`` imports ``kmer_counter_tpu_torch`` from DIR (an unpacked ``git
 archive`` of another commit), which builds its kernels from its own
 ``csrc/``; the operands, checks and timing stay this checkout's.
 ``--kernels`` times only the named ones (chip_smoke.py's names,
-``chunk_step``, ``probes`` and ``row_gather_host``).  Prints
-the card's name and power limit, chip_smoke.py's kernel lines, then each
+``chunk_step``, ``probes``, ``row_gather_host`` and ``pair_merge_host``).
+Prints the card's name and power limit, chip_smoke.py's kernel lines, then each
 source's nvcc report (registers and spill bytes of each instance, then
 the report itself).
 """
@@ -58,31 +59,43 @@ K8_PATH_LAUNCHES = {"main": (396_825, 100, 31, True, "keys"), "main_one": (396_8
                     "mesh_spill": (24_801, 100, 31, True, "keys")}
 
 
-def row_gather_host(cs, device, reps=1000):
-    """Host microseconds a call of row_gather's wrapper and of each piece
-    of its launch path at D4's shape ([16, 128], one start, shift -3),
-    ``reps`` calls issued back to back with no synchronisation (after 100
-    unmeasured), beside torch.roll: the wrapper's checks (_check_rows), the
-    output's torch.empty, the current stream's handle both ways (the Stream
-    object's and the raw binding's), and the launch (the typed ctypes call
-    of the library).  Only names that every tree of the port has."""
+def launch_path_host(cs, device, wrapper, reps=1000):
+    """Host microseconds a call of a probe wrapper and of each piece of its
+    launch path, ``reps`` calls issued back to back with no synchronisation
+    (after 100 unmeasured), beside its library call: the wrapper's checks,
+    the output's torch.empty, the current stream's handle both ways (the
+    Stream object's and the raw binding's), and the launch (the typed ctypes
+    call of the library).  ``row_gather`` at D4's shape ([16, 128], one
+    start, shift -3) beside torch.roll, ``pair_merge`` at D2's (1 pair of
+    2 x 1024 keys, B descending) beside torch.sort.  Only names that every
+    tree of the port has."""
     import torch
 
     from kmer_counter_tpu_torch.ops import probes
 
-    x = torch.zeros((16, 128), dtype=torch.int32, device=device)
-    s = torch.zeros(1, dtype=torch.int32, device=device)
-    out = torch.empty((1, 16, 128), dtype=torch.int32, device=device)
-    index = x.get_device()
+    i32 = torch.int32
     lib = probes._lib()
     stream = torch.cuda.current_stream(device).cuda_stream
-    pieces = {"wrapper": lambda: probes.row_gather(x, s, 16, -3), "torch.roll": lambda: torch.roll(x, 3, 0),
-              "checks": lambda: probes._check_rows(x, s, 16),
-              "torch.empty": lambda: torch.empty((1, 16, 128), dtype=torch.int32, device=x.device),
+    if wrapper == "row_gather":
+        x = torch.zeros((16, 128), dtype=i32, device=device)
+        s = torch.zeros(1, dtype=i32, device=device)
+        out = torch.empty((1, 16, 128), dtype=i32, device=device)
+        call, library = (lambda: probes.row_gather(x, s, 16, -3)), ("torch.roll", lambda: torch.roll(x, 3, 0))
+        checks = lambda: probes._check_rows(x, s, 16)
+        launch = lambda: lib.pr_row_gather(x.data_ptr(), s.data_ptr(), out.data_ptr(), 16, 128, 1, 16, -3, stream)
+    else:
+        x = torch.sort(torch.randint(0, 2**31, (1, 1024), dtype=torch.int64, device=device)).values.to(i32)
+        s = x.flip(1)
+        out = torch.empty((1, 2048), dtype=i32, device=device)
+        both = torch.cat([x, s], 1).to(torch.int64)
+        call, library = (lambda: probes.pair_merge(x, s, b_descending=True)), ("torch.sort", lambda: torch.sort(both))
+        checks = lambda: probes._int32_on_one_device([x, s], "a and b")
+        launch = lambda: lib.pr_pair_merge(x.data_ptr(), s.data_ptr(), out.data_ptr(), 1, 1024, 1024, 1, stream)
+    index = x.get_device()
+    pieces = {"wrapper": call, library[0]: library[1], "checks": checks,
+              "torch.empty": lambda: torch.empty(out.shape, dtype=i32, device=x.device),
               "current_stream().cuda_stream": lambda: torch.cuda.current_stream(x.device).cuda_stream,
-              "raw stream handle": lambda: torch._C._cuda_getCurrentRawStream(index),
-              "launch": lambda: lib.pr_row_gather(x.data_ptr(), s.data_ptr(), out.data_ptr(), 16, 128, 1, 16, -3,
-                                                  stream)}
+              "raw stream handle": lambda: torch._C._cuda_getCurrentRawStream(index), "launch": launch}
     us = {}
     for name, fn in pieces.items():
         for _ in range(100):
@@ -93,7 +106,28 @@ def row_gather_host(cs, device, reps=1000):
             fn()
         us[name] = (time.perf_counter() - t0) / reps * 1e6
         torch.cuda.synchronize()
-    cs.log({"phase": "probes", "row_gather_host_us": us, "reps": reps})
+    cs.log({"phase": "probes", f"{wrapper}_host_us": us, "reps": reps})
+
+
+def pair_merge_floor(cs, device, reps=50):
+    """pair_merge_kernel's launch floor: its device time at one key (G = 1,
+    Ta = 1, Tb = 0), traced over reps calls."""
+    import torch
+
+    from kmer_counter_tpu_torch.ops import probes
+
+    a = torch.ones((1, 1), dtype=torch.int32, device=device)
+    b = torch.ones((1, 0), dtype=torch.int32, device=device)
+
+    def calls():
+        for _ in range(reps):
+            probes.pair_merge(a, b, b_descending=True)
+
+    calls()
+    traced = cs.traced_kernels(calls)
+    cs.log({"phase": "probes", "pair_merge_floor_device_ms": {
+        name: v["ms"] / v["launches"] for name, v in traced.items() if name.startswith("pair_merge_kernel")},
+        "launches": {name: v["launches"] for name, v in traced.items()}})
 
 
 def main():
@@ -123,14 +157,15 @@ def main():
     gen = torch.Generator(device=device).manual_seed(cs.SEED)
     names = args.kernels.split(",") if args.kernels else [
         cs.SORT["name"], cs.K2["name"], cs.K1["name"], *cs.MERGES, cs.K8["name"], "chunk_step", "probes",
-        "row_gather_host"]
+        "row_gather_host", "pair_merge_host"]
     for name in names:
         if name == "chunk_step":
             cs.time_chunk_step(device)
         elif name == "probes":
             cs.phase_probes(device, cases)
-        elif name == "row_gather_host":
-            row_gather_host(cs, device)
+            pair_merge_floor(cs, device)
+        elif name in ("row_gather_host", "pair_merge_host"):
+            launch_path_host(cs, device, name.removesuffix("_host"))
         elif name == cs.K8["name"]:
             cs.k8_random_shapes(device, cases)
             for path, (R, L, k, canonical, mode) in K8_PATH_LAUNCHES.items():

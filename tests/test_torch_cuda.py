@@ -1125,7 +1125,8 @@ def test_extract_failed_launch_raises_and_never_falls_back(cuda, monkeypatch):
 
 # ---- D1-D7: the probe kernels (ops.probes, csrc/probes.cu) ---------------------
 
-# Output keys a block of pair_merge_kernel; rows a tile of tile_compact_kernel;
+# Output keys a block of pair_merge_kernel where a pair fits one block (a pair
+# spread over blocks takes half as many); rows a tile of tile_compact_kernel;
 # rows a part of its network (a CTA of the tile's cluster of eight) and the
 # CTA's threads (32 rows each).
 PROBE_MERGE_TILE = 2048
@@ -1148,15 +1149,29 @@ def probe_keys(rng, shape, ascending=True):
 
 
 # (G, Ta, Tb): the probes' shapes (D2, D3, D7), G = 1, empty and tiny sides,
-# lengths that are no multiple of the block's range, one side much longer.
+# lengths that are no multiple of the block's range, one side much longer;
+# rows of A, B and the output that start 1, 2 or 3 words past a 16-byte
+# boundary (Ta, Tb or Ta + Tb not a multiple of 4, G > 1).
 PROBE_MERGE_SHAPES = [(1, 1024, 1024), (512, 1024, 1024), (1, 65536, 65536), (1, 0, 5), (1, 5, 0), (1, 1, 1),
                       (3, 2047, 2049), (2, 2048, 2048), (1, 10000, 3), (1, 3, 10000), (7, 4095, 1),
-                      (1, 100000, 70001), (64, 333, 777), (5, 0, 0)]
+                      (1, 100000, 70001), (64, 333, 777), (5, 0, 0), (3, 1025, 1023), (5, 2050, 2046),
+                      (2, 65537, 65535), (3, 1026, 1025), (2, 3, 2046), (3, 2050, 2048), (4, 4097, 0)]
+# Pairs whose merge-path splits fall inside runs of equal keys, across the
+# edges of the blocks: (G, Ta, Tb, the values the keys take).
+PROBE_MERGE_TIE_CASES = {"all_equal": (3, 5000, 3001, (12345,)), "all_equal_top": (2, 2049, 4095, (M,)),
+                         "two_values": (2, 6001, 4097, (0, M)),
+                         "two_values_sign": (3, 2050, 2046, (0x7FFFFFFF, 0x80000000))}
 
 
 def probe_merge_case(rng, G, ta, tb):
     """(a [G, ta], b [G, tb]) uint32, both ascending."""
     return probe_keys(rng, (G, ta)), probe_keys(rng, (G, tb))
+
+
+def probe_tie_case(rng, G, ta, tb, values):
+    """(a [G, ta], b [G, tb]) uint32, both ascending, every key one of values."""
+    v = np.asarray(values, np.uint32)
+    return tuple(np.sort(v[rng.integers(0, len(v), (G, t))], axis=1) for t in (ta, tb))
 
 
 # Live totals of the "residues" tiles: each residue mod 4 (the zero tail's
@@ -1234,14 +1249,22 @@ def probe_random_shapes(rng, count=20):
     return {"pair_merge": merge, "tile_compact": tiles, "row_gather": gather}
 
 
-def probe_merge_vs_plain(a, b, device):
+def probe_merge_vs_plain(a, b, device, start=0):
     """pair_merge on the card against its plain version, B in either order;
-    bit-exact and equal to np.sort of each pair."""
+    bit-exact and equal to np.sort of each pair.  A and B are contiguous
+    views that begin ``start`` words into their buffers."""
     from kmer_counter_tpu_torch.ops import probes
+    from kmer_counter_tpu_torch.ops.u32 import from_numpy
+
+    def on_device(x):
+        buf = torch.zeros(x.size + start, dtype=torch.int32, device=device)
+        view = buf[start:].view(x.shape)
+        view.copy_(from_numpy(x, device))
+        return view
 
     want = np.sort(np.concatenate([a, b], axis=1), axis=1)
     for desc in (False, True):
-        ta, tb = (torch.from_numpy(x.view(np.int32).copy()).to(device) for x in (a, b[:, ::-1] if desc else b))
+        ta, tb = (on_device(x) for x in (a, b[:, ::-1] if desc else b))
         before = probes.launches["pair_merge"]
         got = probes.pair_merge(ta, tb, b_descending=desc)
         torch.cuda.synchronize()
@@ -1322,6 +1345,19 @@ def test_probe_pair_merge_kernel(cuda, shape):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(PROBE_MERGE_TIE_CASES))
+def test_probe_pair_merge_kernel_ties_across_blocks(cuda, name):
+    probe_merge_vs_plain(*probe_tie_case(np.random.default_rng(3), *PROBE_MERGE_TIE_CASES[name]), cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("start", [1, 2, 3])
+@pytest.mark.parametrize("shape", [(3, 2050, 2046), (2, 4097, 3001)], ids=lambda s: "x".join(map(str, s)))
+def test_probe_pair_merge_kernel_on_unaligned_rows(cuda, shape, start):
+    probe_merge_vs_plain(*probe_merge_case(np.random.default_rng(start), *shape), cuda, start)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("name", sorted(PROBE_TILE_CASES))
 def test_probe_tile_compact_kernel(cuda, name):
     probe_tile_vs_plain(*probe_tile_case(np.random.default_rng(0), *PROBE_TILE_CASES[name]), cuda)
@@ -1349,6 +1385,65 @@ def test_probe_kernels_random_shapes(cuda):
 @pytest.mark.gpu
 def test_probe_kernels_follow_the_current_stream(cuda):
     probe_side_stream_vs_plain(cuda)
+
+
+def wrapper_stream_case(name, rng):
+    """(inputs as NumPy arrays, the wrapper, its plain version, whether two
+    results agree, its launch count) of one wrapper of the port, at a small
+    shape."""
+    from kmer_counter_tpu_torch.ops import compact_live as cl
+    from kmer_counter_tpu_torch.ops import fused_extract as fx
+    from kmer_counter_tpu_torch.ops import lane_sort as ls
+    from kmer_counter_tpu_torch.ops import merge_fold_compact as mfc
+    from kmer_counter_tpu_torch.ops import probes
+
+    def k1(fn):
+        return lambda *v: fn(list(v[:3]), list(v[3:]), 2)
+
+    def k1_agree(got, want):
+        return torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])
+
+    if name == "fused_extract":
+        return ([extract_reads(rng, 3000, 100)], lambda r: fx.extract_chunk_lanes_major(r, 31, True),
+                lambda r: fx.extract_chunk_lanes_major_reference(r, 31, True), torch.equal, lambda: fx.launches)
+    if name == "lane_sort":
+        return (list(_sort_random(rng, 2, 50_000)), ls.sort_ops, ls.sort_ops_reference, sort_outputs_agree,
+                lambda: ls.launches)
+    if name == "merge_fold_compact":
+        _, a, ac, bd, bc = random_case(rng, 2, 20_000, 30_000)
+        return ([*a, ac, *bd, bc], k1(mfc.merge_fold_compact), k1(mfc.merge_fold_compact_reference), k1_agree,
+                lambda: mfc.launches)
+    if name == "compact_live":
+        ops, live = compact_case(rng, 2, 50_000, 0.5)
+        return ([*ops, live], lambda *v: cl.compact_live(list(v[:-1]), v[-1], 2),
+                lambda *v: cl.compact_live_reference(list(v[:-1]), v[-1], 2), torch.equal, lambda: cl.launches)
+    a, b = probe_merge_case(rng, 3, 5000, 3001)
+    return ([a, np.ascontiguousarray(b[:, ::-1])], lambda a, b: probes.pair_merge(a, b, b_descending=True),
+            lambda a, b: probes.pair_merge_reference(a, b, b_descending=True), torch.equal,
+            lambda: probes.launches["pair_merge"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["fused_extract", "lane_sort", "merge_fold_compact", "compact_live", "pair_merge"])
+def test_wrapper_follows_the_current_stream(cuda, name):
+    """The wrapper launched inside torch.cuda.stream(side).  Its inputs are
+    written on side after a spin of tens of milliseconds, so a launch on any
+    other stream would read them unwritten (zeros); after side.synchronize()
+    its result equals its plain version's, and it launched its kernel once."""
+    inputs, kernel, plain, agree, count = wrapper_stream_case(name, np.random.default_rng(9))
+    src = [torch.from_numpy(x.view(np.int32) if x.dtype == np.uint32 else x).to(cuda) for x in inputs]
+    bufs = [torch.zeros_like(t) for t in src]
+    torch.cuda.synchronize()
+    before = count()
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)
+        for buf, t in zip(bufs, src):
+            buf.copy_(t)
+        got = kernel(*bufs)
+    side.synchronize()
+    assert count() == before + 1
+    assert agree(got, plain(*src))
 
 
 @pytest.mark.gpu

@@ -12,10 +12,13 @@ harnesses), on the CPU.
   add ``interpret=True`` and record each call's operands and result.
   Nothing under docs/ changes.
 - The plain versions against NumPy over many seeded shapes, and models of
-  the CUDA kernels' arithmetic (csrc/probes.cu: the merge-path split of
-  blocks and threads, the chunked block scan with its carry, C's
-  remainder for the rows) against the plain versions.  The CUDA kernels
-  run only on the card (tests/test_torch_cuda.py, chip_smoke.py).
+  the CUDA kernels' arithmetic (csrc/probes.cu: the warp's ballot search
+  for a tile's split, ballot by ballot, against the binary one, with its
+  rounds counted; the 16-byte staging and the tiles on the output's grid,
+  with every warp instruction's shared-memory banks counted; the chunked
+  block scan with its carry; C's remainder for the rows) against the plain
+  versions.  The CUDA kernels run only on the card
+  (tests/test_torch_cuda.py, chip_smoke.py).
 - The three harnesses' ``main(device=cpu)`` at reduced sizes, and the
   wrappers' checks.
 
@@ -25,6 +28,7 @@ Tolerance: exact equality; everything is integer.
 import ast
 import importlib.util
 import os
+from collections import defaultdict
 
 import jax
 import jax.numpy as jnp
@@ -39,9 +43,9 @@ from kmer_counter_tpu_torch.ops.u32 import from_numpy, to_numpy
 from kmer_counter_tpu_torch.probes import ProbeFailed, experiments_bitonic_merge, experiments_mosaic_caps
 from kmer_counter_tpu_torch.probes import probe_compact_overhead
 
-from tests.test_torch_cuda import (PROBE_GATHER_CASES, PROBE_MERGE_TILE, PROBE_NET_THREADS, PROBE_PART, PROBE_TILE,
-                                   PROBE_TILE_CASES,
-                                   probe_gather_case, probe_keys, probe_merge_case, probe_tile_case)
+from tests.test_torch_cuda import (PROBE_GATHER_CASES, PROBE_MERGE_TIE_CASES, PROBE_MERGE_TILE, PROBE_NET_THREADS,
+                                   PROBE_PART, PROBE_TILE, PROBE_TILE_CASES, probe_gather_case, probe_keys,
+                                   probe_merge_case, probe_tie_case, probe_tile_case, wrapper_stream_case)
 
 CPU = torch.device("cpu")
 DOCS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "docs")
@@ -299,50 +303,238 @@ def merge_path_split(d, la, lb, a_le_b):
     return lo
 
 
-def model_pair_merge(a, b_stored, b_desc, threads=PROBE_MERGE_TILE // 8, items=8):
-    """pair_merge_kernel: blocks of threads*items diagonals of one pair, the
-    block's ranges staged, each thread merging from its own split."""
+def pad(r):
+    """lanes.cuh pad: one spare word after every 32 of a shared-memory tile."""
+    return r + r // 32
+
+
+def warp_split(d, ta, tb, a_at, b_at):
+    """probes.cu warp_split, ballot by ballot: each round lane k probes the
+    last candidate of the k-th of 32 equal slices of the candidates, and the
+    count of the ballot of "A <= B" names the slice that holds the split.
+    Returns (split, rounds of loads)."""
+    lo, hi = max(d - tb, 0), min(d, ta)
+    rounds = 0
+    while lo < hi:
+        step = (hi - lo + 31) >> 5
+        probe = [lo + (k + 1) * step - 1 for k in range(32)]
+        ballot = sum((i < hi and a_at(i) <= b_at(d - 1 - i)) << k for k, i in enumerate(probe))
+        c = bin(ballot).count("1")
+        lo, hi = lo + c * step, min(lo + (c + 1) * step - 1, hi)
+        rounds += 1
+    return lo, rounds
+
+
+def conflicts(banks_by_instruction):
+    """Extra shared-memory wavefronts: for each warp instruction (a list of
+    the banks its active lanes touch), the lanes that share a bank."""
+    return sum(len(b) - len(set(b)) for b in banks_by_instruction)
+
+
+def model_stage(keys, start, rev, threads, iters):
+    """probes.cu stage_load + stage_store of keys (a range of a row whose
+    first key lies ``start`` words past a 16-byte boundary): ({tile index:
+    key}, f, the stores' bank conflicts).  Chunk c, the c-th 16-byte chunk
+    from the one the range starts in, goes to thread c % threads in round
+    c // threads; a whole chunk is one 16-byte load, the head and tail a word
+    at a time."""
+    n = len(keys)
+    h = start % 4
+    chunks = (h + n + 3) // 4
+    assert chunks <= threads * iters
+    f = -(h + n) % 32 if rev else h
+    tile, stores = {}, []
+    for it in range(iters):
+        for w in range(threads // 32):
+            for q in range(4):
+                banks = []
+                for lane in range(32):
+                    c = 32 * w + lane + it * threads
+                    k = 4 * c - h + q
+                    if c < chunks and 0 <= k < n:
+                        idx = f + n - 1 - k if rev else f + k
+                        assert idx not in tile
+                        tile[idx] = keys[k]
+                        banks.append(pad(idx) % 32)
+                stores.append(banks)
+    return tile, f, conflicts(stores)
+
+
+# probes.cu FitShape and SpreadShape: (threads, outputs a thread) of a block
+# where a pair fits one block, and where it is spread over blocks.
+FIT_SHAPE, SPREAD_SHAPE = (256, 8), (256, 4)
+
+
+def model_pair_merge(a, b_stored, b_desc, starts=(0, 0, 0), stats=None):
+    """pair_merge_kernel: a block a tile of threads*items output words of one
+    pair (FIT_SHAPE where the pair fits one tile, else SPREAD_SHAPE), the
+    tiles on the output's 16-byte grid (``starts``: the words past a 16-byte
+    boundary at which a, b and the output begin); warps 0 and 1 find the
+    tile's splits (warp_split), the block stages its A and B ranges in
+    16-byte chunks (model_stage), thread t merges the tile's words [items t,
+    items (t+1)) that lie in the pair from its own split into the padded
+    output tile, and the block writes the tile out, whole 16-byte chunks at
+    once.
+    Asserts that every output word is written once, by a 16-byte store on a
+    16-byte boundary or as a head or tail word.  ``stats``, when given,
+    collects the most rounds of a split and the bank conflicts of each
+    phase."""
     G, ta = a.shape
     tb = b_stored.shape[1]
-    n, tile = ta + tb, threads * items
-    tiles = -(-n // tile)
+    n = ta + tb
+    shift = 3 if n % 4 else starts[2] % 4
+    threads, items = FIT_SHAPE if n + shift <= FIT_SHAPE[0] * FIT_SHAPE[1] else SPREAD_SHAPE
+    tile = threads * items
+    iters = -(-(tile // 4 + 2) // threads)
+    tiles = -(-(n + shift) // tile)
     out = np.zeros((G, n), np.uint32)
+    writes = np.zeros((G, n), int)
+    st = {} if stats is None else stats
+    for key in ("rounds", "stage", "merge", "store"):
+        st.setdefault(key, 0)
     for blk in range(G * tiles):
         g = blk // tiles
-        d0 = (blk - g * tiles) * tile
-        d1 = min(d0 + tile, n)
         pa, pb = a[g].tolist(), b_stored[g].tolist()
+        o = (starts[2] + g * n) % 4  # the row's first word past a 16-byte boundary
+        e0 = (blk - g * tiles) * tile - o
+        d0, d1 = max(e0, 0), min(e0 + tile, n)
+        if d0 >= d1:
+            continue
 
         def b_at(j):
             return pb[tb - 1 - j] if b_desc else pb[j]
 
-        a0, a1 = (merge_path_split(d, ta, tb, lambda i, j: pa[i] <= b_at(j)) for d in (d0, d1))
-        la = a1 - a0
-        lb = d1 - d0 - la
-        s_a, s_b = pa[a0 : a0 + la], [b_at(d0 - a0 + j) for j in range(lb)]
-        s_out = [None] * (la + lb)
+        (a0, r0), (a1, r1) = (warp_split(d, ta, tb, lambda i: pa[i], b_at) for d in (d0, d1))
+        st["rounds"] = max(st["rounds"], r0, r1)
+        length = d1 - d0
+        la = min(max(a1 - a0, 0), length)
+        lb = length - la
+        b0 = d0 - a0
+        sb0 = tb - b0 - lb if b_desc else b0  # B's range as stored
+        tile_a, fa, ca = model_stage(pa[a0 : a0 + la], starts[0] + g * ta + a0, False, threads, iters)
+        tile_b, fb, cb = model_stage(pb[sb0 : sb0 + lb], starts[1] + g * tb + sb0, b_desc, threads, iters)
+        st["stage"] += ca + cb
+        assert max([fa + la, fb + lb, 0]) <= tile + 32
+
+        def sa(i):
+            return tile_a[fa + i]
+
+        def sb(j):
+            return tile_b[fb + j]
+
+        lo, hi = d0 - e0, d0 - e0 + length
+        s_out, merge_stores, loads = {}, defaultdict(list), defaultdict(list)  # banks by (warp, round, q)
         for t in range(threads):
-            t0 = t * items
-            if t0 >= la + lb:
-                break
-            ia = merge_path_split(t0, la, lb, lambda i, j: s_a[i] <= s_b[j])
-            ib = t0 - ia
-            for q in range(min(items, la + lb - t0)):
-                if ib >= lb or (ia < la and s_a[ia] <= s_b[ib]):
-                    s_out[t0 + q], ia = s_a[ia], ia + 1
+            t0 = items * t
+            first = max(t0, lo)
+            cnt = min(t0 + items, hi) - first
+            if cnt <= 0:
+                continue
+            ia = merge_path_split(first - lo, la, lb, lambda i, j: sa(i) <= sb(j))
+            ib = first - lo - ia
+            for q in range(cnt):
+                if ib >= lb or (ia < la and sa(ia) <= sb(ib)):
+                    s_out[first + q], ia = sa(ia), ia + 1
                 else:
-                    s_out[t0 + q], ib = s_b[ib], ib + 1
-        out[g, d0:d1] = s_out
+                    s_out[first + q], ib = sb(ib), ib + 1
+                merge_stores[t // 32, q].append(pad(first + q) % 32)
+        st["merge"] += conflicts(merge_stores.values())
+        assert sorted(s_out) == list(range(lo, hi))
+        for t in range(threads):
+            for it, i in enumerate(range(4 * t, hi, 4 * threads)):
+                whole = i >= lo and i + 4 <= hi
+                if whole:
+                    assert (starts[2] + g * n + e0 + i) % 4 == 0, "a 16-byte store off a 16-byte boundary"
+                for q in range(4):
+                    if lo <= i + q < hi:
+                        out[g, e0 + i + q] = s_out[i + q]
+                        writes[g, e0 + i + q] += 1
+                        loads[t // 32, it, q].append(pad(i + q) % 32)
+        st["store"] += conflicts(loads.values())
+    assert (writes == 1).all(), "an output word written twice or never"
     return out
 
 
-@pytest.mark.parametrize("shape", [(1, 1024, 1024), (3, 2047, 2049), (1, 5000, 17), (2, 0, 3000), (1, 4096, 4096)])
-def test_model_of_pair_merge_kernel_matches_plain(shape):
-    a, b = probe_merge_case(np.random.default_rng(sum(shape)), *shape)
+def model_vs_plain(a, b, starts=(0, 0, 0)):
+    """model_pair_merge against the plain version, B in either order; the
+    staging stores and the output tile's loads free of bank conflicts.
+    Returns the stats of the B-descending run."""
     for desc in (False, True):
         b_stored = np.ascontiguousarray(b[:, ::-1]) if desc else b
         want = to_numpy(probes.pair_merge(t32(a), t32(b_stored), b_descending=desc))
-        np.testing.assert_array_equal(model_pair_merge(a, b_stored, desc), want)
+        stats = {}
+        np.testing.assert_array_equal(model_pair_merge(a, b_stored, desc, starts, stats=stats), want)
+        assert stats["stage"] == stats["store"] == 0, stats
+    return stats
+
+
+# Shapes of the model: the probes' pair (D2), several blocks a pair, one
+# side short or empty, a pair of exactly two blocks; then rows of A, B and
+# the output starting 1, 2 and 3 words past a 16-byte boundary (Ta, Tb or
+# Ta + Tb not a multiple of 4, G > 1).
+MODEL_MERGE_SHAPES = [(1, 1024, 1024), (3, 2047, 2049), (1, 5000, 17), (2, 0, 3000), (1, 4096, 4096),
+                      (3, 1025, 1023), (5, 2050, 2046), (3, 1026, 1025), (2, 3, 2046), (3, 2050, 2048),
+                      (4, 4097, 5)]
+
+
+@pytest.mark.parametrize("shape", MODEL_MERGE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_model_of_pair_merge_kernel_matches_plain(shape):
+    stats = model_vs_plain(*probe_merge_case(np.random.default_rng(sum(shape)), *shape))
+    if shape[0] == 1 and shape[1] + shape[2] <= PROBE_MERGE_TILE:
+        assert stats["rounds"] == 0  # a pair in one block searches nothing
+    if sum(shape[1:]) % 4 == 0:
+        assert stats["merge"] == 0  # every row on the grid: the merge's stores too
+
+
+@pytest.mark.parametrize("starts", [(1, 2, 3), (3, 1, 2), (2, 3, 1)])
+def test_model_of_pair_merge_kernel_on_unaligned_tensors(starts):
+    """a, b and the output beginning off a 16-byte boundary (column slices,
+    or views into a larger buffer)."""
+    model_vs_plain(*probe_merge_case(np.random.default_rng(sum(starts)), 3, 2050, 2049), starts)
+
+
+@pytest.mark.parametrize("name", sorted(PROBE_MERGE_TIE_CASES))
+def test_model_of_pair_merge_kernel_with_ties_across_blocks(name):
+    model_vs_plain(*probe_tie_case(np.random.default_rng(3), *PROBE_MERGE_TIE_CASES[name]))
+
+
+SPLIT_SMALL = {"empty_a": (0, 7), "empty_b": (9, 0), "one_each": (1, 1), "short": (37, 64), "odd": (300, 257),
+               "long_a": (1000, 33)}
+
+
+def split_case(rng, case):
+    """(a, b ascending, the diagonals to search): a tie-heavy small pair
+    (probe_keys: runs of 0, 0xFFFFFFFF, 0x80000000 and 12345) at every
+    diagonal, or a pair of 65,536 keys a side at both ends and 300 random
+    diagonals."""
+    if case.startswith("large"):
+        a, b = probe_keys(rng, 65536), probe_keys(rng, 65536)
+        return a, b, [0, 1, 65535, 65536, 65537, 131071, 131072, *rng.integers(0, 131073, 300).tolist()]
+    ta, tb = SPLIT_SMALL[case]
+    return probe_keys(rng, ta), probe_keys(rng, tb), range(ta + tb + 1)
+
+
+@pytest.mark.parametrize("desc", [False, True])
+@pytest.mark.parametrize("case", [*SPLIT_SMALL, "large_0", "large_1", "large_2"])
+def test_warp_split_matches_merge_path_split(case, desc):
+    """warp_split's ballot search finds lanes.cuh merge_path_split's split
+    (A first on ties) at every diagonal searched, with B stored in either
+    order; at most 4 rounds of loads at 65,536 keys a side."""
+    rng = np.random.default_rng([len(case), int(desc)])
+    a, b, diagonals = split_case(rng, case)
+    pa, pb = a.tolist(), (b[::-1] if desc else b).tolist()
+    tb = len(pb)
+
+    def b_at(j):
+        return pb[tb - 1 - j] if desc else pb[j]
+
+    most = 0
+    for d in diagonals:
+        got, rounds = warp_split(d, len(pa), tb, lambda i: pa[i], b_at)
+        assert got == merge_path_split(d, len(pa), tb, lambda i, j: pa[i] <= b_at(j)), d
+        most = max(most, rounds)
+    if case.startswith("large"):
+        assert 3 <= most <= 4
 
 
 def model_tile_cumsum(ops, live, threads=1024):
@@ -544,6 +736,24 @@ def test_stream_helper_is_never_reached_for_cpu_tensors(monkeypatch):
         got = probes.tile_compact([t32(v) for v in ops], t32(live), mode)
         np.testing.assert_array_equal(to_numpy(got), probe_compact_overhead.expected(mode, ops, live))
     assert probes.launches == before
+
+
+@pytest.mark.parametrize("name", ["fused_extract", "lane_sort", "merge_fold_compact", "compact_live", "pair_merge"])
+def test_every_wrapper_takes_the_plain_version_for_cpu_tensors(monkeypatch, name):
+    """The wrappers that take the stream's raw handle (cuda_build's binding,
+    in a CUDA build only) run their plain versions for CPU tensors and never
+    reach it; no launch is counted."""
+    from kmer_counter_tpu_torch import cuda_build
+
+    def no_stream(device_index):
+        raise AssertionError("the stream helper was called for CPU tensors")
+
+    monkeypatch.setattr(cuda_build, "current_stream", no_stream)
+    inputs, wrapper, plain, agree, count = wrapper_stream_case(name, np.random.default_rng(4))
+    src = [torch.from_numpy(x.view(np.int32) if x.dtype == np.uint32 else x) for x in inputs]
+    before = count()
+    assert agree(wrapper(*src), plain(*src))
+    assert count() == before
 
 
 def test_tile_compact_refuses_what_the_kernel_does_not_take():
