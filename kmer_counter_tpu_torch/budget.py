@@ -96,7 +96,8 @@ def two_level_peaks(NL: int, cp: int, cr: int, raw_rows: int, chunk: Chunk,
     (``route_rows``) of a mesh position's route of that many received
     rows beside its prefix.  Keys are the table stages' names."""
     prefix, raw = 4 * (NL + 1) * cp, 4 * NL * cr
-    held = prefix + raw + chunk.read_bytes + _ALLOCATOR_SLACK  # the last chunk's reads stay on the card
+    # the chunk feed's one device buffer (feed.py) holds a chunk's reads
+    held = prefix + raw + chunk.read_bytes + _ALLOCATOR_SLACK
     peaks = {
         "count_step_two_level": held + chunk_step_bytes_per_window(NL) * chunk.windows,
         "_sort_raw_desc": held + 4 * NL * cr + raw_sort_bytes_per_row(NL) * raw_rows,
@@ -122,6 +123,7 @@ def one_level_peaks(NL: int, capacity: int, chunk: Chunk, grow_from: int | None 
     a consolidation (``sort_reduce`` over every slot), and (``route_rows``)
     a mesh position's route of that many received rows."""
     table = 4 * (NL + 1) * capacity
+    # the chunk feed's one device buffer (feed.py) holds a chunk's reads
     held = table + chunk.read_bytes + _ALLOCATOR_SLACK
     peaks = {
         "extract_chunk": held + (chunk_step_bytes_per_window(NL) + 4 * (NL + 1)) * chunk.windows,

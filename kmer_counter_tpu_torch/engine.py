@@ -1,8 +1,10 @@
 """Orchestrator: the chunked count loop over a FASTQ directory —
 counterpart of kmer_counter_tpu.engine (single device).
 
-A prefetch thread parses chunks (io.fastq) while the main thread enqueues
-each chunk's extract + append on the device.  Two tables:
+A prefetch thread parses chunks (io.fastq) and stages each in a pinned
+slot of the run's feed (feed.py); the main thread enqueues its copy to the
+card on the feed's copy stream, then the chunk's extract + append on the
+compute stream, which waits on the copy.  Two tables:
 
   * two-level (``tableImpl=two``, and ``auto``): keys go to a raw region;
     when it is full the table consolidates through the merge-fold-compact
@@ -34,6 +36,8 @@ more than one rank.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import os
 import queue
 import threading
@@ -46,6 +50,7 @@ import torch
 from kmer_counter_tpu_torch import records
 from kmer_counter_tpu_torch import budget as bg
 from kmer_counter_tpu_torch.config import Options
+from kmer_counter_tpu_torch.feed import ChunkFeed
 from kmer_counter_tpu_torch.io.dump import dump_table, load_table
 from kmer_counter_tpu_torch.io.fastq import DirectoryInput, ParallelIngest
 from kmer_counter_tpu_torch.metrics import Metrics, device_trace
@@ -127,8 +132,6 @@ def _absorb(stats: RunStats, chunk) -> None:
 
 def _start_monitor(opts: Options, stats: RunStats, gauge_extra):
     """1 Hz size monitor under verbose >= 2; a no-op context otherwise."""
-    import contextlib
-
     if opts.verbose < 2:
         return contextlib.nullcontext()
     from kmer_counter_tpu_torch.metrics import SizeMonitor
@@ -157,8 +160,12 @@ class CountEngine:
         self._scheduler = None  # the spill-merge scheduler, once a run spills (io.spill)
 
     @staticmethod
-    def _ingest_worker(source, reads_per_chunk, out_q, metrics, skip_reads=0, expected_files=None):
-        """Prefetch thread: parse chunks ahead of the device.
+    def _ingest_worker(source, feed, width, out_q, metrics, skip_reads=0, expected_files=None):
+        """Prefetch thread: parse chunks ahead of the device and stage each
+        in a slot of ``feed`` (``width`` columns, or the chunk's own line
+        length when None); every chunk goes on ``out_q`` with its slot, so
+        the feed's ring bounds what waits there.  The thread ends when the
+        input does, or, without taking a slot, once the feed is closed.
 
         ``skip_reads`` reads are consumed and discarded first (checkpoint
         resume; ingest order is deterministic).  ``expected_files`` is the
@@ -169,7 +176,7 @@ class CountEngine:
             skipped: dict[str, int] = {}
             while skip_reads > 0:
                 with metrics.timer("ingest"):
-                    chunk = source.read_chunk(min(reads_per_chunk, skip_reads))
+                    chunk = source.read_chunk(min(feed.rows, skip_reads))
                 if chunk is None:
                     break
                 skip_reads -= chunk.n_reads
@@ -188,45 +195,60 @@ class CountEngine:
                 return
             while True:
                 with metrics.timer("ingest"):
-                    chunk = source.read_chunk(reads_per_chunk)
+                    chunk = source.read_chunk(feed.rows)
                 if chunk is None:
                     break
-                out_q.put(chunk)
+                slot = feed.acquire()
+                if slot is None:
+                    return
+                with metrics.timer("stage"):
+                    feed.stage(slot, chunk.reads, width or chunk.line_length)
+                out_q.put((dataclasses.replace(chunk, reads=None), slot))
         except Exception as e:  # handed to the consumer, which re-raises it
             out_q.put(e)
         finally:
             out_q.put(_END)
 
-    def _chunks(self, source, reads_per_chunk, stats, metrics, skip_reads, expected_files):
-        """The chunks that hold k-mers, as (chunk, reads ``[reads_per_chunk,
-        L] uint8``, worst-case slots), parsed ahead by the prefetch thread.
+    def _chunks(self, source, feed, width, stats, metrics, skip_reads, expected_files):
+        """The chunks that hold k-mers, as (chunk, its staged slot of
+        ``feed``, worst-case slots), parsed ahead by the prefetch thread.
         Chunks of reads shorter than k are absorbed here; the caller
-        absorbs each chunk it yields once its step is enqueued."""
+        uploads each chunk it gets and absorbs it once its step is
+        enqueued.  Closing the generator (the caller raised) closes the
+        feed and joins the prefetch thread."""
         k = self.opts.kmer_length
-        chunk_q: queue.Queue = queue.Queue(maxsize=max(self.opts.prefetch_chunks, 1))
+        chunk_q: queue.Queue = queue.Queue()
         ingest = threading.Thread(
             target=self._ingest_worker,
-            args=(source, reads_per_chunk, chunk_q, metrics, skip_reads, expected_files),
+            args=(source, feed, width, chunk_q, metrics, skip_reads, expected_files),
+            name="kmer-ingest",
             daemon=True,
         )
         ingest.start()
-        while True:
-            with metrics.timer("ingest_wait"):
-                item = chunk_q.get()
-            if item is _END:
-                break
-            if isinstance(item, Exception):
-                raise item
-            if item.line_length < k:
-                _absorb(stats, item)
-                continue
-            reads = item.reads
-            if reads.shape[0] < reads_per_chunk:
-                pad = np.zeros((reads_per_chunk - reads.shape[0], reads.shape[1]), np.uint8)
-                reads = np.vstack([reads, pad])
-            yield item, reads, chunk_slots(reads_per_chunk, item.line_length, k)
-        ingest.join()
-        source.close()
+        try:
+            while True:
+                with metrics.timer("ingest_wait"):
+                    item = chunk_q.get()
+                if item is _END:
+                    break
+                if isinstance(item, Exception):
+                    raise item
+                chunk, slot = item
+                if chunk.line_length < k:
+                    feed.give_back(slot)
+                    _absorb(stats, chunk)
+                    continue
+                yield chunk, slot, chunk_slots(feed.rows, chunk.line_length, k)
+        finally:
+            feed.close()
+            ingest.join()
+            source.close()
+
+    def _feed(self, devices, rows_per_position, line_length):
+        """The run's feed (feed.py), its ring allocated here, on the main
+        thread, before the prefetch thread starts: prefetchChunks queued
+        chunks, one being copied and one being filled."""
+        return ChunkFeed(devices, rows_per_position, line_length, max(self.opts.prefetch_chunks, 0) + 2)
 
     def run(self) -> RunStats:
         opts = self.opts
@@ -252,11 +274,13 @@ class CountEngine:
         per_chunk = None
         if opts.temp_dir:
             per_chunk = bg.Chunk(reads_per_chunk * line_length, chunk_slots(reads_per_chunk, line_length, k))
-        chunks = self._chunks(source, reads_per_chunk, stats, metrics,
-                              resumed.reads_absorbed if resumed else 0, resumed.files if resumed else None)
+        feed = self._feed([self.device], reads_per_chunk, line_length)
         count = self._count_one_level if opts.table_impl == "one" else self._count_two_level
-        lanes_np, counts_np = count(chunks, line_length, reads_per_chunk, table_slots, stats, metrics,
-                                    resumed, per_chunk)
+        with contextlib.closing(self._chunks(source, feed, None, stats, metrics,
+                                             resumed.reads_absorbed if resumed else 0,
+                                             resumed.files if resumed else None)) as chunks:
+            lanes_np, counts_np = count(chunks, feed, line_length, reads_per_chunk, table_slots, stats, metrics,
+                                        resumed, per_chunk)
         stats.consolidations += 1  # the finalize's
         if self._scheduler is not None:
             # The final table joins the spill runs; the host merge writes
@@ -391,7 +415,7 @@ class CountEngine:
 
     # ---- the two tables --------------------------------------------------
 
-    def _count_two_level(self, chunks, line_length, reads_per_chunk, table_slots, stats, metrics, resumed,
+    def _count_two_level(self, chunks, feed, line_length, reads_per_chunk, table_slots, stats, metrics, resumed,
                          per_chunk):
         """The two-level chunk loop (counterpart of
         ``CountEngine._run_two_level``); returns the finalized (lanes,
@@ -470,13 +494,14 @@ class CountEngine:
                                       table.prefix_counts[:live_bound], int(table.allt) & MASK)
 
         with _start_monitor(opts, stats, lambda: f"raw={raw_bound}/{cr} live={live_bound}/{cp}"):
-            for chunk, reads, slots in chunks:
+            for chunk, slot, slots in chunks:
                 if raw_bound + slots > cr:
                     consolidate()
                     raw_bound = 0
                 with metrics.timer("dispatch"):
-                    dev_reads = torch.from_numpy(reads).to(self.device)
+                    dev_reads, = feed.upload(slot)
                     count_step_two_level(table, dev_reads, k, opts.canonical)
+                    feed.consumed()
                 raw_bound += slots
                 stats.chunks += 1
                 _absorb(stats, chunk)
@@ -490,7 +515,7 @@ class CountEngine:
             # did (finalize2 sorts those rows).
             return t2.finalize_host(table, k, live_bound)
 
-    def _count_one_level(self, chunks, line_length, reads_per_chunk, table_slots, stats, metrics, resumed,
+    def _count_one_level(self, chunks, feed, line_length, reads_per_chunk, table_slots, stats, metrics, resumed,
                          per_chunk):
         """The one-level chunk loop (counterpart of
         ``CountEngine._run_one_level``); returns the finalized (lanes,
@@ -527,7 +552,7 @@ class CountEngine:
         else:
             table = t1.make_table(table_slots, NL, self.device)
         with _start_monitor(opts, stats, lambda: f"bound={table.offset}/{table.lanes.shape[1]}"):
-            for chunk, reads, slots in chunks:
+            for chunk, slot, slots in chunks:
                 capacity = table.lanes.shape[1]
                 if table.offset + slots > capacity:
                     with metrics.timer("consolidate"):
@@ -548,8 +573,9 @@ class CountEngine:
                                 print(f"[engine] growing table to {grown} slots")
                             table = t1.grow(table, grown)
                 with metrics.timer("dispatch"):
-                    dev_reads = torch.from_numpy(reads).to(self.device)
+                    dev_reads, = feed.upload(slot)
                     t1.append(table, *extract_chunk(dev_reads, k, opts.canonical))
+                    feed.consumed()
                 stats.chunks += 1
                 _absorb(stats, chunk)
 
@@ -735,26 +761,18 @@ class MeshCountEngine(CountEngine):
             self._spill_counter(c, stats, metrics)
 
         resumed = self._load_mesh_checkpoint(counter, stats, cap, spill)
-        want_rows = rpd * len(mesh.positions)
-        chunks = self._chunks(source, want_rows, stats, metrics, resumed.reads_absorbed if resumed else 0,
-                              (resumed.files or None) if resumed else None)
-
-        def next_rows():
-            item = next(chunks, None)
-            if item is None:
-                return None, None
-            chunk, reads, _ = item
-            if reads.shape[1] < line_length:
-                reads = np.pad(reads, ((0, 0), (0, line_length - reads.shape[1])))
-            return chunk, reads
+        feed = self._feed(mesh.local_devices, rpd, line_length)
 
         def maybe_consolidate():
             # An explicit consolidation boundary (the counter would
             # otherwise consolidate inside step()), so that the engine can
             # spill and snapshot there.  Every trigger is host-mirrored, so
-            # every process reaches the same decision.
+            # every process reaches the same decision.  The feed's device
+            # buffer is freed first: a mesh step holds its chunk on the
+            # card only while it runs, as before the feed.
             if not counter.pending_consolidation():
                 return
+            feed.release()
             with metrics.timer("consolidate"):
                 counter.consolidate(cap, spill)
             stats.consolidations += 1
@@ -762,21 +780,25 @@ class MeshCountEngine(CountEngine):
                 with metrics.timer("checkpoint"):
                     self._save_mesh_checkpoint(counter, stats)
 
-        with _start_monitor(opts, stats, lambda: f"occupied/position={counter.occupied_bound()}"):
-            empty = np.zeros((want_rows, line_length), np.uint8)
+        with (_start_monitor(opts, stats, lambda: f"occupied/position={counter.occupied_bound()}"),
+              contextlib.closing(self._chunks(source, feed, line_length, stats, metrics,
+                                              resumed.reads_absorbed if resumed else 0,
+                                              (resumed.files or None) if resumed else None)) as chunks):
             drained = False
             while True:
-                chunk, reads = (None, None) if drained else next_rows()
+                chunk, slot, _ = (None, None, None) if drained else next(chunks, (None, None, None))
                 drained = chunk is None
                 # Lockstep: go on while any process still has data.
                 if (drained if not multi else not global_any(mesh, not drained)):
                     break
                 maybe_consolidate()
                 with metrics.timer("dispatch"):
-                    counter.step(reads if reads is not None else empty)
+                    counter.step(feed.upload(slot) if slot is not None else feed.zeros())
+                    feed.consumed()
                 if chunk is not None:
                     stats.chunks += 1
                     _absorb(stats, chunk)
+        feed.release()
 
         # The all-T side count (two-level, k % 16 == 0, forward): T^k is
         # the largest key, so its record is the last of the last range.

@@ -67,15 +67,17 @@ class _Sharded:
         self.position_consolidations = 0  # consolidations summed over this process's positions
 
     def _device_rows(self, reads):
-        """This process's rows of the chunk (``[P*rpd, L] uint8``, numpy or
-        a tensor) on each position's device: one copy per distinct device."""
-        rpd, devices = self.reads_per_device, self.mesh.local_devices
-        if not isinstance(reads, torch.Tensor):
-            reads = torch.from_numpy(np.ascontiguousarray(reads))
-        if len(set(devices)) == 1:
-            on = reads.to(devices[0])
-            return [on[i * rpd:(i + 1) * rpd] for i in range(len(devices))]
-        return [reads[i * rpd:(i + 1) * rpd].to(d) for i, d in enumerate(devices)]
+        """This process's rows of the chunk on each position's device: the
+        per-position views that the engine's feed placed there
+        (feed.ChunkFeed: one pinned copy a card, on its copy stream), or, on
+        CPU positions, a host array ``[P*rpd, L] uint8`` viewed in place."""
+        if isinstance(reads, list):
+            return reads
+        if any(d.type != "cpu" for d in self.mesh.local_devices):
+            raise TypeError("host rows reach a card only through feed.ChunkFeed")
+        rpd = self.reads_per_device
+        reads = torch.from_numpy(np.ascontiguousarray(reads))
+        return [reads[i * rpd:(i + 1) * rpd] for i in range(len(self.mesh.local_devices))]
 
     def _ensure_splitters(self):
         """Sample and freeze the splitters at the first route, from the
@@ -178,7 +180,7 @@ class ShardedCounter2(_Sharded):
         self.tables = [t2.make_table2(self.CP, self.CR, self.NL, d) for d in mesh.local_devices]
 
     def step(self, reads):
-        """Count one chunk: this process's rows ``[P*rpd, L] uint8``."""
+        """Count one chunk: this process's rows (``_device_rows``)."""
         if self.pending_consolidation():
             self.consolidate()
         for table, rows in zip(self.tables, self._device_rows(reads)):
@@ -307,7 +309,7 @@ class ShardedCounter(_Sharded):
         self.tables = [t1.make_table(table_slots, self.NL, d) for d in mesh.local_devices]
 
     def step(self, reads):
-        """Count one chunk: this process's rows ``[P*rpd, L] uint8``."""
+        """Count one chunk: this process's rows (``_device_rows``)."""
         if self.pending_consolidation():
             self.consolidate()
         for table, rows in zip(self.tables, self._device_rows(reads)):

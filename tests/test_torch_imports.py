@@ -23,6 +23,7 @@ PORT_MODULES = [
     "kmer_counter_tpu_torch.config",
     "kmer_counter_tpu_torch.cuda_build",
     "kmer_counter_tpu_torch.engine",
+    "kmer_counter_tpu_torch.feed",
     "kmer_counter_tpu_torch.io",
     "kmer_counter_tpu_torch.io.dump",
     "kmer_counter_tpu_torch.io.fastq",
