@@ -26,6 +26,19 @@ outstanding spill runs are saved (checkpoint.py), and a run with the same
 ``checkpointDir`` resumes from the snapshot.  ``profile=true`` traces the
 run with torch.profiler (metrics.device_trace).
 
+Every phase of a run is a ``Metrics`` timer, and so a ``kmer.<timer>``
+span while a profiler records: on the main thread ``run`` (the whole run,
+``RunStats.wall_seconds``), ``setup`` (the source and its probe, the plan,
+a resume, the feed's ring, the table), ``ingest_wait``, ``dispatch``,
+``consolidate``, ``finalize`` (with ``finalize.copy_back``: the copies from
+the card, ``.d2h``, whose bytes are the ``d2h_bytes`` counter, then the
+host transpose, ``.transpose``), ``close`` (the feed closed, the prefetch
+thread joined, the source closed) and ``dump`` (``dump.format``,
+``dump.write``);
+in the prefetch thread ``ingest``, ``feed.acquire`` (waiting for a free
+slot of the ring) and ``stage``.  The counter ``unspanned_us`` is the part
+of ``run`` that no timer opened directly inside it covered.
+
 ``MeshCountEngine`` runs the same loop over the positions of a mesh
 (parallel): each counts its rows of every chunk into a table of its own,
 and the finalize routes each record to the position that owns its key
@@ -41,7 +54,6 @@ import dataclasses
 import os
 import queue
 import threading
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -55,7 +67,7 @@ from kmer_counter_tpu_torch.io.dump import dump_table, load_table
 from kmer_counter_tpu_torch.io.fastq import DirectoryInput, ParallelIngest
 from kmer_counter_tpu_torch.metrics import Metrics, device_trace
 from kmer_counter_tpu_torch.ops.pipeline import chunk_slots
-from kmer_counter_tpu_torch.ops.u32 import MASK, SENTINEL, from_numpy, to_numpy
+from kmer_counter_tpu_torch.ops.u32 import MASK, SENTINEL, copy_back, from_numpy, to_numpy
 from kmer_counter_tpu_torch.parallel.mesh import allgather_host, global_any, global_max_int, make_mesh
 from kmer_counter_tpu_torch.parallel.pipeline import ShardedCounter, ShardedCounter2
 
@@ -73,7 +85,6 @@ class RunStats:
     distinct_kmers: int = 0
     total_kmers: int = 0
     spilled_runs: int = 0
-    ingest_seconds: float = 0.0
     wall_seconds: float = 0.0
     per_file: dict = field(default_factory=dict)
     metrics: dict = field(default_factory=dict)
@@ -198,7 +209,8 @@ class CountEngine:
                     chunk = source.read_chunk(feed.rows)
                 if chunk is None:
                     break
-                slot = feed.acquire()
+                with metrics.timer("feed.acquire"):
+                    slot = feed.acquire()
                 if slot is None:
                     return
                 with metrics.timer("stage"):
@@ -240,9 +252,10 @@ class CountEngine:
                     continue
                 yield chunk, slot, chunk_slots(feed.rows, chunk.line_length, k)
         finally:
-            feed.close()
-            ingest.join()
-            source.close()
+            with metrics.timer("close"):
+                feed.close()
+                ingest.join()
+                source.close()
 
     def _feed(self, devices, rows_per_position, line_length):
         """The run's feed (feed.py), its ring allocated here, on the main
@@ -252,29 +265,50 @@ class CountEngine:
 
     def run(self) -> RunStats:
         opts = self.opts
-        k = opts.kmer_length
-        stats = RunStats()
-        metrics = Metrics()
-        t_start = time.perf_counter()
-
-        source = _make_source(opts)
-        usable = [L for L in source.probe_line_lengths() if L >= k]
-        if not usable:
-            dump_table(
-                opts.output_file,
-                np.zeros((0, records.active_lanes(k)), np.uint32),
-                np.zeros(0, np.uint32),
+        stats, metrics = RunStats(), Metrics()
+        with metrics.timer("run"):
+            self._run(stats, metrics)
+        stats.wall_seconds = metrics.timers["run"]
+        for name, value in (
+            ("reads", stats.reads),
+            ("chunks", stats.chunks),
+            ("consolidations", stats.consolidations),
+            ("distinct_kmers", stats.distinct_kmers),
+            ("unspanned_us", round(1e6 * metrics.uncovered("run"))),
+        ):
+            metrics.count(name, value)
+        stats.metrics = metrics.snapshot()
+        if opts.verbose:
+            print(f"[metrics] {metrics.report()}")
+            print(
+                f"[engine] reads={stats.reads} bases={stats.bases} "
+                f"distinct={stats.distinct_kmers} total={stats.total_kmers} "
+                f"chunks={stats.chunks} consolidations={stats.consolidations} "
+                f"wall={stats.wall_seconds:.2f}s "
+                f"({stats.kmers_per_second/1e6:.2f}M kmers/s)"
             )
-            stats.wall_seconds = time.perf_counter() - t_start
-            return stats
-        line_length = max(usable)
-        reads_per_chunk, table_slots = plan_chunks(opts, line_length)
-        resumed = self._resume(stats) if opts.checkpoint_dir else None
-        # With spilling on, what a chunk puts on the card sizes the caps.
-        per_chunk = None
-        if opts.temp_dir:
-            per_chunk = bg.Chunk(reads_per_chunk * line_length, chunk_slots(reads_per_chunk, line_length, k))
-        feed = self._feed([self.device], reads_per_chunk, line_length)
+        return stats
+
+    def _run(self, stats: RunStats, metrics: Metrics) -> None:
+        """The count, from the input directory to the output file."""
+        opts = self.opts
+        k = opts.kmer_length
+        with metrics.timer("setup"):
+            source = _make_source(opts)
+            usable = [L for L in source.probe_line_lengths() if L >= k]
+        if not usable:
+            dump_table(opts.output_file, np.zeros((0, records.active_lanes(k)), np.uint32), np.zeros(0, np.uint32),
+                       metrics=metrics)
+            return
+        with metrics.timer("setup"):
+            line_length = max(usable)
+            reads_per_chunk, table_slots = plan_chunks(opts, line_length)
+            resumed = self._resume(stats) if opts.checkpoint_dir else None
+            # With spilling on, what a chunk puts on the card sizes the caps.
+            per_chunk = None
+            if opts.temp_dir:
+                per_chunk = bg.Chunk(reads_per_chunk * line_length, chunk_slots(reads_per_chunk, line_length, k))
+            feed = self._feed([self.device], reads_per_chunk, line_length)
         count = self._count_one_level if opts.table_impl == "one" else self._count_two_level
         with contextlib.closing(self._chunks(source, feed, None, stats, metrics,
                                              resumed.reads_absorbed if resumed else 0,
@@ -299,27 +333,7 @@ class CountEngine:
         else:
             stats.distinct_kmers = len(counts_np)
             stats.total_kmers = int(counts_np.sum(dtype=np.uint64))
-            dump_table(opts.output_file, lanes_np, counts_np)
-        stats.wall_seconds = time.perf_counter() - t_start
-        stats.ingest_seconds = metrics.timers.get("ingest", 0.0)
-        for name, value in (
-            ("reads", stats.reads),
-            ("chunks", stats.chunks),
-            ("consolidations", stats.consolidations),
-            ("distinct_kmers", stats.distinct_kmers),
-        ):
-            metrics.count(name, value)
-        stats.metrics = metrics.snapshot()
-        if opts.verbose:
-            print(f"[metrics] {metrics.report()}")
-            print(
-                f"[engine] reads={stats.reads} bases={stats.bases} "
-                f"distinct={stats.distinct_kmers} total={stats.total_kmers} "
-                f"chunks={stats.chunks} consolidations={stats.consolidations} "
-                f"wall={stats.wall_seconds:.2f}s "
-                f"({stats.kmers_per_second/1e6:.2f}M kmers/s)"
-            )
-        return stats
+            dump_table(opts.output_file, lanes_np, counts_np, metrics=metrics)
 
     # ---- checkpoints and spill -------------------------------------------
 
@@ -439,25 +453,26 @@ class CountEngine:
             )
         live_bound = 0  # prefix rows in use (exact after a consolidation)
         raw_bound = 0  # raw slots in use (host mirror of table.raw_off)
-        if resumed is not None:
-            # The snapshot's rows, unique and ascending, then sentinel rows
-            # with count 0, so the prefix stays ascending as K1 requires.
-            # Rows that pass the cap (a snapshot written under another
-            # rule) become a run, as at a consolidation.
-            rows = records.strip_lanes_to_active(resumed.lanes, k)
-            cp, spill = bg.next_prefix(cap, cp, len(resumed.counts), 0)
-            if spill:
-                self._spill(rows, resumed.counts, stats, metrics)
+        with metrics.timer("setup"):
+            if resumed is not None:
+                # The snapshot's rows, unique and ascending, then sentinel rows
+                # with count 0, so the prefix stays ascending as K1 requires.
+                # Rows that pass the cap (a snapshot written under another
+                # rule) become a run, as at a consolidation.
+                rows = records.strip_lanes_to_active(resumed.lanes, k)
+                cp, spill = bg.next_prefix(cap, cp, len(resumed.counts), 0)
+                if spill:
+                    self._spill(rows, resumed.counts, stats, metrics)
+                else:
+                    live_bound = len(resumed.counts)
+                prefix_lanes = np.full((NL, cp), 0xFFFFFFFF, np.uint32)
+                prefix_counts = np.zeros(cp, np.uint32)
+                prefix_lanes[:, :live_bound] = rows[:live_bound].T
+                prefix_counts[:live_bound] = resumed.counts[:live_bound]
+                table = t2.table_from_numpy(prefix_lanes, prefix_counts, np.zeros((NL, cr), np.uint32), 0,
+                                            resumed.allt, self.device)
             else:
-                live_bound = len(resumed.counts)
-            prefix_lanes = np.full((NL, cp), 0xFFFFFFFF, np.uint32)
-            prefix_counts = np.zeros(cp, np.uint32)
-            prefix_lanes[:, :live_bound] = rows[:live_bound].T
-            prefix_counts[:live_bound] = resumed.counts[:live_bound]
-            table = t2.table_from_numpy(prefix_lanes, prefix_counts, np.zeros((NL, cr), np.uint32), 0,
-                                        resumed.allt, self.device)
-        else:
-            table = t2.make_table2(cp, cr, NL, self.device)
+                table = t2.make_table2(cp, cr, NL, self.device)
 
         def consolidate(final=False):
             # The prefix is sized before the merge so that it can never
@@ -513,7 +528,7 @@ class CountEngine:
         with metrics.timer("finalize"):
             # live_bound is exact: a consolidation set it, or the snapshot
             # did (finalize2 sorts those rows).
-            return t2.finalize_host(table, k, live_bound)
+            return t2.finalize_host(table, k, live_bound, metrics=metrics)
 
     def _count_one_level(self, chunks, feed, line_length, reads_per_chunk, table_slots, stats, metrics, resumed,
                          per_chunk):
@@ -533,24 +548,25 @@ class CountEngine:
                 f"device={self.device}"
             )
         cap = bg.max_table_slots(opts, NL, per_chunk) if per_chunk else None
-        if resumed is not None:
-            # The snapshot's rows and room for a chunk; where the table
-            # would grow past the cap for them, they become a run first,
-            # as at a consolidation.
-            U = len(resumed.counts)
-            rows = records.strip_lanes_to_active(resumed.lanes, k)
-            slots = chunk_slots(reads_per_chunk, line_length, k)
-            table_slots, spill = bg.next_capacity(cap, table_slots, U + slots)
-            if spill:
-                self._spill(rows, resumed.counts, stats, metrics)
-                U = 0
-            lanes = np.zeros((NL, table_slots), np.uint32)
-            counts = np.zeros(table_slots, np.uint32)
-            lanes[:, :U] = rows[:U].T
-            counts[:U] = resumed.counts[:U]
-            table = t1.CountTable(from_numpy(lanes, self.device), from_numpy(counts, self.device), U)
-        else:
-            table = t1.make_table(table_slots, NL, self.device)
+        with metrics.timer("setup"):
+            if resumed is not None:
+                # The snapshot's rows and room for a chunk; where the table
+                # would grow past the cap for them, they become a run first,
+                # as at a consolidation.
+                U = len(resumed.counts)
+                rows = records.strip_lanes_to_active(resumed.lanes, k)
+                slots = chunk_slots(reads_per_chunk, line_length, k)
+                table_slots, spill = bg.next_capacity(cap, table_slots, U + slots)
+                if spill:
+                    self._spill(rows, resumed.counts, stats, metrics)
+                    U = 0
+                lanes = np.zeros((NL, table_slots), np.uint32)
+                counts = np.zeros(table_slots, np.uint32)
+                lanes[:, :U] = rows[:U].T
+                counts[:U] = resumed.counts[:U]
+                table = t1.CountTable(from_numpy(lanes, self.device), from_numpy(counts, self.device), U)
+            else:
+                table = t1.make_table(table_slots, NL, self.device)
         with _start_monitor(opts, stats, lambda: f"bound={table.offset}/{table.lanes.shape[1]}"):
             for chunk, slot, slots in chunks:
                 capacity = table.lanes.shape[1]
@@ -581,9 +597,7 @@ class CountEngine:
 
         with metrics.timer("finalize"):
             table = t1.consolidate(table)
-            n = table.offset
-            lanes = np.ascontiguousarray(to_numpy(table.lanes[:, :n]).T)
-            return lanes, to_numpy(table.counts[:n])
+            return copy_back(table.lanes, table.counts, table.offset, metrics)
 
 
 class MeshCountEngine(CountEngine):
@@ -718,50 +732,71 @@ class MeshCountEngine(CountEngine):
         return resumed
 
     def run(self) -> RunStats:
+        opts = self.opts
+        stats, metrics = RunStats(), Metrics()
+        with metrics.timer("run"):
+            counter = self._run(stats, metrics)
+        stats.wall_seconds = metrics.timers["run"]
+        for name, value in (("reads", stats.reads), ("chunks", stats.chunks),
+                            ("distinct_kmers", stats.distinct_kmers),
+                            ("position_consolidations", counter.position_consolidations if counter else 0),
+                            ("unspanned_us", round(1e6 * metrics.uncovered("run")))):
+            metrics.count(name, value)
+        stats.metrics = metrics.snapshot()
+        if opts.verbose:
+            print(f"[metrics] {metrics.report()}")
+            print(f"[engine] reads={stats.reads} distinct={stats.distinct_kmers} total={stats.total_kmers} "
+                  f"wall={stats.wall_seconds:.2f}s ({stats.kmers_per_second/1e6:.2f}M kmers/s over "
+                  f"{self.mesh.size} positions)")
+        return stats
+
+    def _run(self, stats: RunStats, metrics: Metrics):
+        """The count over the mesh, from the input directory to the output
+        (file or parts); returns the counter, or None for an input with no
+        line of k bases."""
         opts, mesh = self.opts, self.mesh
         k = opts.kmer_length
-        stats = RunStats()
-        metrics = Metrics()
-        t_start = time.perf_counter()
         D, multi = mesh.size, mesh.world > 1
 
-        source = _make_source(opts, shard=(mesh.rank, mesh.world) if multi else None)
-        usable = [L for L in source.probe_line_lengths() if L >= k]
-        if multi:
-            # The chunk shape must agree on every process (each step is
-            # collective): the largest usable line length of any.
-            longest = global_max_int(mesh, max(usable, default=0))
-            usable = [longest] if longest >= k else []
+        with metrics.timer("setup"):
+            source = _make_source(opts, shard=(mesh.rank, mesh.world) if multi else None)
+            usable = [L for L in source.probe_line_lengths() if L >= k]
+            if multi:
+                # The chunk shape must agree on every process (each step is
+                # collective): the largest usable line length of any.
+                longest = global_max_int(mesh, max(usable, default=0))
+                usable = [longest] if longest >= k else []
         if not usable:
-            dump_table(opts.output_file, np.zeros((0, records.active_lanes(k)), np.uint32), np.zeros(0, np.uint32))
-            stats.wall_seconds = time.perf_counter() - t_start
-            return stats
-        line_length = max(usable)
-        reads_per_chunk, table_slots = plan_chunks(opts, line_length)
-        rpd = max(reads_per_chunk // D, 1)
-        NL = records.active_lanes(k)
-        # Chunks from shorter files are padded with zero bytes, which
-        # encode as invalid bases: one counter at the longest line length.
-        per_pos_slots = max(table_slots // D, 4 * rpd * (line_length - k + 1))
-        if opts.table_impl == "one":
-            counter = ShardedCounter(mesh, k, opts.canonical, per_pos_slots, rpd, line_length)
-        else:
-            cp = max(per_pos_slots // 4, 1)
-            counter = ShardedCounter2(mesh, k, opts.canonical, cp, max(per_pos_slots - cp, 1), rpd, line_length)
-        if opts.verbose:
-            print(f"[engine] mesh={D} positions ({len(mesh.positions)} in this process) k={k} "
-                  f"canonical={opts.canonical} L={line_length} reads/position/chunk={rpd} "
-                  f"slots/position={per_pos_slots} device={self.device}")
-        cap = self._position_cap(counter, NL, line_length) if opts.temp_dir else None
-        # A route gives a position at most as many rows a round as its
-        # table may hold: budget.py reckons the route's step at that size.
-        self._route_cap = cap
+            dump_table(opts.output_file, np.zeros((0, records.active_lanes(k)), np.uint32), np.zeros(0, np.uint32),
+                       metrics=metrics)
+            return None
+        with metrics.timer("setup"):
+            line_length = max(usable)
+            reads_per_chunk, table_slots = plan_chunks(opts, line_length)
+            rpd = max(reads_per_chunk // D, 1)
+            NL = records.active_lanes(k)
+            # Chunks from shorter files are padded with zero bytes, which
+            # encode as invalid bases: one counter at the longest line length.
+            per_pos_slots = max(table_slots // D, 4 * rpd * (line_length - k + 1))
+            if opts.table_impl == "one":
+                counter = ShardedCounter(mesh, k, opts.canonical, per_pos_slots, rpd, line_length)
+            else:
+                cp = max(per_pos_slots // 4, 1)
+                counter = ShardedCounter2(mesh, k, opts.canonical, cp, max(per_pos_slots - cp, 1), rpd, line_length)
+            if opts.verbose:
+                print(f"[engine] mesh={D} positions ({len(mesh.positions)} in this process) k={k} "
+                      f"canonical={opts.canonical} L={line_length} reads/position/chunk={rpd} "
+                      f"slots/position={per_pos_slots} device={self.device}")
+            cap = self._position_cap(counter, NL, line_length) if opts.temp_dir else None
+            # A route gives a position at most as many rows a round as its
+            # table may hold: budget.py reckons the route's step at that size.
+            self._route_cap = cap
 
-        def spill(c):
-            self._spill_counter(c, stats, metrics)
+            def spill(c):
+                self._spill_counter(c, stats, metrics)
 
-        resumed = self._load_mesh_checkpoint(counter, stats, cap, spill)
-        feed = self._feed(mesh.local_devices, rpd, line_length)
+            resumed = self._load_mesh_checkpoint(counter, stats, cap, spill)
+            feed = self._feed(mesh.local_devices, rpd, line_length)
 
         def maybe_consolidate():
             # An explicit consolidation boundary (the counter would
@@ -825,21 +860,10 @@ class MeshCountEngine(CountEngine):
                 lanes, counts = np.concatenate([lanes, allt_lanes]), np.concatenate([counts, allt_counts])
             stats.distinct_kmers = len(counts)
             stats.total_kmers = int(counts.sum(dtype=np.uint64))
-            dump_table(opts.output_file, lanes, counts)
+            dump_table(opts.output_file, lanes, counts, metrics=metrics)
         self.route_balance = None if counter.balance is None else counter.balance.tolist()
         self.route_rounds = counter.most_rounds
-        stats.wall_seconds = time.perf_counter() - t_start
-        stats.ingest_seconds = metrics.timers.get("ingest", 0.0)
-        for name, value in (("reads", stats.reads), ("chunks", stats.chunks),
-                            ("distinct_kmers", stats.distinct_kmers),
-                            ("position_consolidations", counter.position_consolidations)):
-            metrics.count(name, value)
-        stats.metrics = metrics.snapshot()
-        if opts.verbose:
-            print(f"[metrics] {metrics.report()}")
-            print(f"[engine] reads={stats.reads} distinct={stats.distinct_kmers} total={stats.total_kmers} "
-                  f"wall={stats.wall_seconds:.2f}s ({stats.kmers_per_second/1e6:.2f}M kmers/s over {D} positions)")
-        return stats
+        return counter
 
     def _finish_spilled(self, counter, stats, metrics, allt, allt_lanes, allt_counts):
         """One process that spilled: the positions' tables join the runs and
@@ -855,7 +879,7 @@ class MeshCountEngine(CountEngine):
             written = self._scheduler.finish(opts.output_file)
         self._scheduler = None
         if allt:
-            written += dump_table(opts.output_file, allt_lanes, allt_counts, append=True)
+            written += dump_table(opts.output_file, allt_lanes, allt_counts, append=True, metrics=metrics)
         stats.distinct_kmers = written
         _, counts_all = load_table(opts.output_file, opts.kmer_length)
         stats.total_kmers = int(counts_all.sum(dtype=np.uint64))
@@ -893,10 +917,10 @@ class MeshCountEngine(CountEngine):
                 total += int(load_table(part, opts.kmer_length)[1].sum(dtype=np.uint64))
             else:
                 (lanes, counts), = pieces[pos]
-                n = dump_table(part, lanes, counts)
+                n = dump_table(part, lanes, counts, metrics=metrics)
                 total += int(counts.sum(dtype=np.uint64))
             if allt and pos == mesh.size - 1:
-                n += dump_table(part, allt_lanes, allt_counts, append=True)
+                n += dump_table(part, allt_lanes, allt_counts, append=True, metrics=metrics)
                 total += allt
             written += n
         with open(f"{opts.output_file}.manifest.{mesh.rank}.json", "w") as fh:

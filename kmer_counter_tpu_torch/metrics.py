@@ -9,6 +9,14 @@ counters, an optional background table-size monitor, and a
 
 The port's own copy of kmer_counter_tpu/metrics.py; its ``device_trace``
 records with ``torch.profiler`` where the original uses ``jax.profiler``.
+
+Every timer is also a span: while a torch.profiler session records, the
+block runs inside ``record_function("kmer.<timer>")``, so the program's
+phases land in the same trace as the kernels, copies and CUDA runtime
+calls, on the profiler's clock.  With no profiler recording a timer costs
+its two clock reads, two flag reads and its place on the thread's stack
+of open timers.  That stack gives ``uncovered``: the part of a timer's
+time that no timer opened directly inside it covered.
 """
 
 from __future__ import annotations
@@ -19,15 +27,31 @@ import threading
 import time
 from collections import defaultdict
 
+import torch
+from torch.autograd import profiler as _profiler
+
+SPAN_PREFIX = "kmer."
+
+
+def profiler_recording() -> bool:
+    """Whether a torch.profiler session records: the flag the profiler sets
+    for every thread while it runs, or the calling thread's own state."""
+    return getattr(_profiler, "_is_profiler_enabled", False) or torch.autograd._profiler_enabled()
+
 
 class Metrics:
-    """Thread-safe counters + cumulative stage timers."""
+    """Thread-safe counters + cumulative stage timers (each a profiler span
+    while a profiler records)."""
 
     def __init__(self):
         self._lock = threading.Lock()
+        self._open = threading.local()  # .names: this thread's open timers
         self.counters: dict[str, int] = defaultdict(int)
         self.timers: dict[str, float] = defaultdict(float)
         self.timer_calls: dict[str, int] = defaultdict(int)
+        # Seconds of the timers opened directly inside each timer, on the
+        # same thread.
+        self._inner: dict[str, float] = defaultdict(float)
 
     def count(self, name: str, delta: int = 1):
         with self._lock:
@@ -35,14 +59,30 @@ class Metrics:
 
     @contextlib.contextmanager
     def timer(self, name: str):
+        names = self._open.__dict__.setdefault("names", [])
+        parent = names[-1] if names else None
+        names.append(name)
         t0 = time.perf_counter()
         try:
-            yield
+            if profiler_recording():
+                with torch.profiler.record_function(SPAN_PREFIX + name):
+                    yield
+            else:
+                yield
         finally:
             dt = time.perf_counter() - t0
+            names.pop()
             with self._lock:
                 self.timers[name] += dt
                 self.timer_calls[name] += 1
+                if parent is not None:
+                    self._inner[parent] += dt
+
+    def uncovered(self, name: str) -> float:
+        """Seconds of the ``name`` timers that no timer opened directly
+        inside them, on the same thread, covered."""
+        with self._lock:
+            return self.timers.get(name, 0.0) - self._inner.get(name, 0.0)
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -83,23 +123,40 @@ class SizeMonitor:
         self._thread.join(timeout=2 * self._interval)
 
 
+def span(metrics: Metrics | None, name: str):
+    """``metrics.timer(name)``, or nothing where there is no ``metrics``."""
+    return contextlib.nullcontext() if metrics is None else metrics.timer(name)
+
+
+def _all_threads_config():
+    """The profiler setting that also records threads started inside the
+    trace (the prefetch thread), or None where this torch has none."""
+    try:
+        return torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    except (AttributeError, TypeError):
+        return None
+
+
 @contextlib.contextmanager
 def device_trace(trace_dir: str | None, device=None):
     """torch.profiler trace of the host and, when ``device`` is a CUDA
     device, of the card, written to ``trace_dir`` as a Chrome trace
     (``trace.json``, which chrome://tracing and Perfetto open); a no-op when
-    trace_dir is falsy."""
+    trace_dir is falsy.  The trace holds the ``kmer.<timer>`` spans of the
+    main thread and, where this torch can record threads started inside a
+    trace, of the prefetch thread (``kmer.ingest``, ``kmer.feed.acquire``,
+    ``kmer.stage``)."""
     if not trace_dir:
         yield
         return
     import os
 
-    import torch
-
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device is not None and torch.device(device).type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
+    config = _all_threads_config()
+    extra = {} if config is None else {"experimental_config": config}
+    with torch.profiler.profile(activities=activities, **extra) as prof:
         yield
     os.makedirs(trace_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))

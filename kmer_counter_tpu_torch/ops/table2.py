@@ -39,7 +39,7 @@ from kmer_counter_tpu_torch.ops.merge_runs import (
     merge_sorted_runs_fold_bitonic,
 )
 from kmer_counter_tpu_torch.ops.sortcount import lex_argsort, run_heads, run_totals, sort_reduce
-from kmer_counter_tpu_torch.ops.u32 import MASK, SENTINEL, from_numpy, narrow, to_numpy, widen
+from kmer_counter_tpu_torch.ops.u32 import MASK, SENTINEL, copy_back, from_numpy, narrow, to_numpy, widen
 
 
 @dataclass
@@ -235,11 +235,13 @@ def finalize2(table: TwoLevelTable, live: int | None = None):
     return sort_reduce(table.prefix_lanes[:, :live], table.prefix_counts[:live])
 
 
-def finalize_host(table: TwoLevelTable, k: int, live: int | None = None) -> tuple[np.ndarray, np.ndarray]:
+def finalize_host(table: TwoLevelTable, k: int, live: int | None = None,
+                  metrics=None) -> tuple[np.ndarray, np.ndarray]:
     """The checked host-side finalize: merges any outstanding raw region
     (a nonzero ``lost`` is a hard error), deduplicates, and re-materializes
     the all-T record.  ``live``: the exact prefix rows in use, when the
     caller holds it (see finalize2); a merge here supplies its own.
+    ``metrics``: the copy back is timed and counted there (u32.copy_back).
     Returns (lanes ``[U, NL] uint32``, counts ``[U] uint32``) sorted
     ascending, ready for io.dump.dump_table."""
     if table.raw_off > 0:
@@ -251,8 +253,7 @@ def finalize_host(table: TwoLevelTable, k: int, live: int | None = None) -> tupl
             )
     lanes, counts, n = finalize2(table, live)
     NL = table.prefix_lanes.shape[0]
-    out_lanes = to_numpy(lanes[:, :n]).T if n else np.zeros((0, NL), np.uint32)
-    out_counts = to_numpy(counts[:n])
+    out_lanes, out_counts = copy_back(lanes, counts, n, metrics)
     allt = int(table.allt) & MASK
     if allt:
         # T^k packs to all-ones in every active lane: the maximum key, so

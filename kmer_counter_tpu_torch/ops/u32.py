@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from kmer_counter_tpu_torch.metrics import span
+
 MASK = 0xFFFFFFFF
 # The all-ones sentinel key lane (0xFFFFFFFF) as an int32 bit pattern.
 SENTINEL = -1
@@ -37,3 +39,20 @@ def from_numpy(a: np.ndarray, device: torch.device) -> torch.Tensor:
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """int32 tensor → numpy uint32 with the same bits (host copy)."""
     return t.detach().cpu().contiguous().numpy().view(np.uint32)
+
+
+def copy_back(lanes: torch.Tensor, counts: torch.Tensor, n: int, metrics=None) -> tuple[np.ndarray, np.ndarray]:
+    """The first ``n`` rows of a finalized table on the host: (lanes ``[n,
+    NL] uint32`` contiguous, counts ``[n] uint32``).  With ``metrics``, in
+    its ``finalize.copy_back`` span, which holds the copies from the device
+    (``finalize.copy_back.d2h``, their bytes counted as ``d2h_bytes``) and
+    then the lanes' transpose on the host (``finalize.copy_back.transpose``)."""
+    with span(metrics, "finalize.copy_back"):
+        with span(metrics, "finalize.copy_back.d2h"):
+            host_lanes = to_numpy(lanes[:, :n])
+            host_counts = to_numpy(counts[:n])
+        with span(metrics, "finalize.copy_back.transpose"):
+            host_lanes = np.ascontiguousarray(host_lanes.T)
+    if metrics is not None:
+        metrics.count("d2h_bytes", n * (lanes.shape[0] + 1) * 4)
+    return host_lanes, host_counts
