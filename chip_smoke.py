@@ -9,7 +9,7 @@ and prints no result):
 
   1. device   — card name and power limit (nvidia-smi), torch / CUDA versions
   2. build    — nvcc builds every kernel from csrc/, one process per
-                source, all started together (five sources); logs each
+                source, all started together (six sources); logs each
                 kernel instance's registers and spill bytes
   3. main     — the CLI (kmer_counter_tpu_torch.__main__.main) counts 2M
                 reads x 100 bp sampled from a 4.6-Mbase genome at k=31
@@ -17,12 +17,14 @@ and prints no result):
                 the launch counts of K1 (merge_fold_compact), of the sort
                 (lane_sort, at finalize) and of K8 (fused_extract, the
                 chunk step: once a chunk on every path, once a position a
-                chunk on the mesh paths, from the run's own chunk count) in
+                chunk on the mesh paths, from the run's own chunk count)
+                and of R1 (record_pack, the dump's records packed on the
+                card: once in each main path) in
                 that run and their launch shapes (for K1 and the merges
                 also the live rows of A and B and B's live rows with the
                 sentinel key, for K1 and K2 the output width, the prefix's
                 CP columns; for K8 R, L, k, canonical and its mode, keys
-                or records); the dump is
+                or records; for R1 NL, the rows and the kept rows); the dump is
                 byte-identical to an independent NumPy count; the run's
                 peak device memory is at most gpuMemoryLimit (so in every
                 main path)
@@ -36,7 +38,7 @@ and prints no result):
                 merge_sorted_runs_fold, both on K1's one-pass fold_kernel,
                 or K5 merge_sorted_runs on its split and write passes) and
                 the compaction K2 (compact_live), and K1 never; launches
-                (the merge and K2 at least twice each, K1 none), launch
+                (the merge and K2 at least twice each, K1 none, R1 once), launch
                 shapes, peak device memory (at most gpuMemoryLimit); each
                 dump byte-identical to the NumPy count
   6. spill    — the CLI counts 2M reads x 100 bp sampled from a 200-Mbase
@@ -65,7 +67,9 @@ and prints no result):
                 in a table with room for a chunk; its peak device memory is
                 at most 2e9 and its dump byte-identical to the NumPy count
   8. kernel   — each kernel against its plain torch version on the card:
-                K1, K2, K3, K4 and K8 bit-exact (K8 in both modes at k =
+                K1, K2, K3, K4, K8 and R1 bit-exact (R1 at NL = 1..8,
+                ragged sizes, dense and sparse counts, lanes sliced from a
+                wider table; K8 in both modes at k =
                 1..128 x canonical x four read lengths, on reads longer
                 than its tile, and at the edge cases of
                 tests/test_torch_cuda.py: lower case, N, zero-padded rows,
@@ -233,7 +237,11 @@ MERGES = {
 K8 = dict(name="fused_extract", route="cuda", source="kmer_counter_tpu_torch/csrc/fused_extract.cu",
           replaces="docs/experiments_pallas_extract.py:132", cuda_kernels="extract_kernel")
 K8_KERNEL_NAME = "extract_kernel<"
-KERNEL_NAMES = (K1["name"], SORT["name"], K2["name"], *MERGES, K8["name"])
+# R1: the dump's records packed on the card.  It replaces no TPU kernel:
+# the JAX package formats the dump on the host (kmer_counter_tpu/io/dump.py).
+R1 = dict(name="record_pack", route="cuda", source="kmer_counter_tpu_torch/csrc/records.cu", replaces=None,
+          cuda_kernels="record_count_kernel + record_scan_kernel + record_pack_kernel")
+KERNEL_NAMES = (K1["name"], SORT["name"], K2["name"], *MERGES, K8["name"], R1["name"])
 # D1-D7: the Mosaic probes under docs/, three CUDA kernels in one source
 # behind ops.probes' three wrappers; the ported probe scripts
 # (kmer_counter_tpu_torch/probes/) are the paths that launch them.
@@ -1206,13 +1214,91 @@ def phase_k2_kernel(device, cases, shapes_by_path):
     return per_path_totals(shapes_by_path, at_shape, max_err)
 
 
+# R1's cases: NL 1..8 at sizes around its 1024-row tile and ragged, with a
+# share of zero counts (so the kept rows before most tiles are no multiple
+# of 4), on lanes sliced from a wider table.
+R1_SIZES = (1, 31, 1023, 1024, 1025, 4097, 100_003)
+R1_ZERO_SHARES = (0.0, 0.1, 1.0)
+
+
+def r1_operands(NL, n, kept, gen, device, pad=0, offset=0):
+    """R1's operands made on the card: random lanes [NL, n] as a column
+    slice [offset, offset + n) of a table ``offset + n + pad`` wide, and
+    counts with ``kept`` nonzero rows spread over the table."""
+    import torch
+
+    lanes = torch.randint(-(2**31), 2**31, (NL, offset + n + pad), generator=gen, device=device,
+                          dtype=torch.int32)[:, offset:offset + n]
+    counts = torch.randint(1, 2**31, (n,), generator=gen, device=device, dtype=torch.int32)
+    if kept < n:
+        counts[torch.randperm(n, generator=gen, device=device)[: n - kept]] = 0
+    return lanes, counts
+
+
+def compare_r1(lanes, counts, time_it):
+    """R1 vs plain: the same bytes or raise.  The bound: each row's lanes
+    and count read once, each kept row's record written once, a few
+    integer operations a word."""
+    import torch
+
+    from kmer_counter_tpu_torch.ops import record_pack as rp
+
+    got = rp.pack_records(lanes, counts)
+    want = rp.pack_records_reference(lanes, counts)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"R1 kernel disagrees with plain: lanes {tuple(lanes.shape)}, "
+                             f"{got.numel()} bytes against {want.numel()}")
+    NL, n = lanes.shape
+    written = want.numel()
+    del got, want
+    cost = bound(4 * (NL + 1) * n + written, 4 * (NL + 1) * n + written // 4)
+    if not time_it:
+        return timing(0, None, None, cost)
+    ms, plain_ms, _ = in_turns(lambda: rp.pack_records(lanes, counts),
+                               lambda: rp.pack_records_reference(lanes, counts))
+    return {**timing(0, ms, plain_ms, cost),
+            "device_kernels": traced_kernels(lambda: rp.pack_records(lanes, counts))}
+
+
+def r1_at_shape(path, shape, gen, device):
+    """R1 at a path's launch shape (NL, rows, kept rows), its lanes a slice
+    of a quarter wider table; the line gives the kernels' device time in
+    one traced call beside the bound."""
+    NL, n, kept = shape
+    lanes, counts = r1_operands(NL, n, kept, gen, device, pad=n // 4)
+    t = compare_r1(lanes, counts, time_it=True)
+    device_ms = sum(k["ms"] for k in t["device_kernels"].values())
+    log({"phase": "kernel", "kernel": R1["name"], "path": path, "main_path_launch_shape": True, "NL": NL,
+         "rows": n, "kept": kept, "bit_exact": True, **t, "device_ms": device_ms,
+         "device_bound_share": t["bound_ms"] / device_ms if device_ms else None})
+    return t
+
+
+def phase_r1_kernel(device, shapes_by_path):
+    """R1 vs plain: NL 1..8 at R1_SIZES and R1_ZERO_SHARES on sliced lanes,
+    no rows, then each (NL, rows, kept) that a main path launched.
+    Returns per_path_totals's dict."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    for NL in range(1, 9):
+        for n in R1_SIZES:
+            for share in R1_ZERO_SHARES:
+                compare_r1(*r1_operands(NL, n, n - int(share * n), gen, device, pad=5, offset=n % 3), False)
+        compare_r1(*r1_operands(NL, 0, 0, gen, device), False)
+    log({"phase": "kernel", "kernel": R1["name"], "edge_cases": "NL 1..8 x sizes x zero shares, sliced lanes",
+         "sizes": R1_SIZES, "zero_shares": R1_ZERO_SHARES, "bit_exact": True})
+    return per_path_totals(shapes_by_path, lambda path, shape: r1_at_shape(path, shape, gen, device), 0)
+
+
 class LaunchShapes:
     """Records the shape of each call of the kernel wrappers on the table
     paths: (NL, na, nb, A's live rows, B's live rows, B's live rows with
     the sentinel key) for the merges, the same and the output width for K1,
     (NL, n) for the sort, (NL, n, "route") inside a mesh route,
-    (n_ops, n, live rows, output width) for K2, and (R, L, k, canonical,
-    "keys" or "records") for K8; the kernel phase compares and times the
+    (n_ops, n, live rows, output width) for K2, (R, L, k, canonical,
+    "keys" or "records") for K8, and (NL, n, kept rows) for R1; the kernel phase compares and times the
     kernels at those shapes.
     ``variant``: consolidate3's keywords, bound to table2.consolidate3 while
     the context is open."""
@@ -1220,15 +1306,17 @@ class LaunchShapes:
     def __init__(self, variant=None):
         import functools
 
+        from kmer_counter_tpu_torch.io import dump
         from kmer_counter_tpu_torch.ops import fused_extract, lane_sort, table2
 
-        self._table2, self._lane_sort, self._fx = table2, lane_sort, fused_extract
+        self._table2, self._lane_sort, self._fx, self._dump = table2, lane_sort, fused_extract, dump
         self.shapes = {name: [] for name in KERNEL_NAMES}
         self._patches = [(table2, "merge_fold_compact", self._merge("merge_fold_compact")),
                          (lane_sort, "sort_ops", self._sort),
                          (table2, "compact_live", self._k2),
                          (fused_extract, "extract_chunk_lanes_major", self._k8_records),
-                         (fused_extract, "extract_chunk_keys_into", self._k8_keys)]
+                         (fused_extract, "extract_chunk_keys_into", self._k8_keys),
+                         (dump, "pack_records", self._r1)]
         self._patches += [(table2, name, self._merge(name)) for name in MERGES]
         if variant:
             self._patches.append((table2, "consolidate3", functools.partial(table2.consolidate3, **variant)))
@@ -1270,6 +1358,11 @@ class LaunchShapes:
         self.shapes[K8["name"]].append((*reads.shape, k, bool(canonical), "keys"))
         return self._reals[(self._fx, "extract_chunk_keys_into")](reads, k, canonical, dst, off, allt)
 
+    def _r1(self, lanes, counts):
+        kept = self._table2._count_rows(counts.numel(), lambda p0, p1: counts[p0:p1] != 0)
+        self.shapes[R1["name"]].append((lanes.shape[0], counts.numel(), kept))
+        return self._reals[(self._dump, "pack_records")](lanes, counts)
+
     def __enter__(self):
         for module, name, fn in self._patches:
             setattr(module, name, fn)
@@ -1287,9 +1380,10 @@ def launch_counts():
     from kmer_counter_tpu_torch.ops import lane_sort as ls
     from kmer_counter_tpu_torch.ops import merge_fold_compact as mfc
     from kmer_counter_tpu_torch.ops import merge_runs as mr
+    from kmer_counter_tpu_torch.ops import record_pack as rp
 
     return {K1["name"]: mfc.launches, SORT["name"]: ls.launches, K2["name"]: cl.launches,
-            **{name: mr.launches[name] for name in MERGES}, K8["name"]: fx.launches}
+            **{name: mr.launches[name] for name in MERGES}, K8["name"]: fx.launches, R1["name"]: rp.launches}
 
 
 def reset_launch_counts():
@@ -1298,8 +1392,9 @@ def reset_launch_counts():
     from kmer_counter_tpu_torch.ops import lane_sort as ls
     from kmer_counter_tpu_torch.ops import merge_fold_compact as mfc
     from kmer_counter_tpu_torch.ops import merge_runs as mr
+    from kmer_counter_tpu_torch.ops import record_pack as rp
 
-    mfc.launches = ls.launches = cl.launches = fx.launches = 0
+    mfc.launches = ls.launches = cl.launches = fx.launches = rp.launches = 0
     for name in mr.launches:
         mr.launches[name] = 0
 
@@ -1375,10 +1470,12 @@ def phase_main(device, tmp, cases):
     out = argv[-1].split("=", 1)[1]
     runs = {}
     want = None
-    plan = [("main", "main", "two", None, {K1["name"]: (2, None), SORT["name"]: (1, None)}),
-            ("main_one", "main_one", "one", None, {SORT["name"]: (2, None)})]
+    # Each main path's dump is formatted on the card: one record pack.
+    plan = [("main", "main", "two", None, {K1["name"]: (2, None), SORT["name"]: (1, None), R1["name"]: (1, 1)}),
+            ("main_one", "main_one", "one", None, {SORT["name"]: (2, None), R1["name"]: (1, 1)})]
     for variant in cases.SPLIT_VARIANTS:
-        need = {cases.VARIANT_MERGE[variant]: (2, None), K2["name"]: (2, None), K1["name"]: (0, 0)}
+        need = {cases.VARIANT_MERGE[variant]: (2, None), K2["name"]: (2, None), K1["name"]: (0, 0),
+                R1["name"]: (1, 1)}
         plan.append((f"main_{variant}", "main_variants", "two", variant, need))
     for path, phase, impl, variant, need in plan:
         kw = cases.CONSOLIDATE_VARIANTS[variant] if variant else None
@@ -2775,13 +2872,14 @@ def phase_build():
     from kmer_counter_tpu_torch.ops import lane_sort as ls
     from kmer_counter_tpu_torch.ops import merge_fold_compact as mfc
     from kmer_counter_tpu_torch.ops import probes
+    from kmer_counter_tpu_torch.ops import record_pack as rp
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(6) as pool:
         for f in [pool.submit(mfc.tile_rows, 1), pool.submit(ls.tile_rows, 1), pool.submit(cl.tile_rows),
-                  pool.submit(fx.tile_bases), pool.submit(probes.kernel_tile)]:
+                  pool.submit(fx.tile_bases), pool.submit(probes.kernel_tile), pool.submit(rp.tile_rows)]:
             f.result()
-    for source in ("merge_fold_compact", "lane_sort", "compact_live", "fused_extract", "probes"):
+    for source in ("merge_fold_compact", "lane_sort", "compact_live", "fused_extract", "probes", "records"):
         report = cuda_build.build_log.get(source, "")
         log({"phase": "build", "source": f"csrc/{source}.cu", "nvcc_s": cuda_build.build_seconds[source],
              "instances": ptxas_report(report)})
@@ -2858,7 +2956,8 @@ def main():
                    SORT["name"]: timed(phase_sort_kernel, device, cases, shapes_of(SORT["name"])),
                    K2["name"]: timed(phase_k2_kernel, device, cases, shapes_of(K2["name"])),
                    **timed(phase_merge_kernels, device, cases, {name: shapes_of(name) for name in MERGES}),
-                   K8["name"]: timed(phase_k8_kernel, device, cases, shapes_of(K8["name"]))}
+                   K8["name"]: timed(phase_k8_kernel, device, cases, shapes_of(K8["name"])),
+                   R1["name"]: timed(phase_r1_kernel, device, shapes_of(R1["name"]))}
         torch.cuda.empty_cache()
         probe_timings, probe_launches = timed(phase_probes, device, cases)
         torch.cuda.empty_cache()
@@ -2868,7 +2967,7 @@ def main():
     log({"phase": "done", "seconds": time.perf_counter() - t_all})
 
     print(smi_line(), flush=True)
-    specs = [K1, SORT, K2, *MERGES.values(), K8]
+    specs = [K1, SORT, K2, *MERGES.values(), K8, R1]
     entries = [kernel_entry(spec, runs, timings[spec["name"]]) for spec in specs]
     entries += [kernel_entry(spec, {path: ({spec["name"]: n}, None) for path, n in probe_launches[d].items()},
                              probe_timings[d]) for d, spec in PROBE_SPECS.items()]

@@ -30,11 +30,15 @@ Every phase of a run is a ``Metrics`` timer, and so a ``kmer.<timer>``
 span while a profiler records: on the main thread ``run`` (the whole run,
 ``RunStats.wall_seconds``), ``setup`` (the source and its probe, the plan,
 a resume, the feed's ring, the table), ``ingest_wait``, ``dispatch``,
-``consolidate``, ``finalize`` (with ``finalize.copy_back``: the copies from
-the card, ``.d2h``, whose bytes are the ``d2h_bytes`` counter, then the
-host transpose, ``.transpose``), ``close`` (the feed closed, the prefetch
-thread joined, the source closed) and ``dump`` (``dump.format``,
-``dump.write``);
+``consolidate``, ``finalize`` (with ``finalize.copy_back``: the copy of the
+counts from the card, ``.d2h``), ``close`` (the feed closed, the prefetch
+thread joined, the source closed) and ``dump`` (``dump.format``, with
+``.pack`` and ``.d2h`` for the lanes left on the device, and
+``dump.write``); where the final table joins spill runs, a second
+``finalize.copy_back`` after the finalize copies its lanes (``.d2h``) and
+transposes them on the host (``.transpose``) instead of the dump; the
+``d2h_bytes`` counter is the bytes of those copies (the dump's only where
+they crossed from a card);
 in the prefetch thread ``ingest``, ``feed.acquire`` (waiting for a free
 slot of the ring) and ``stage``.  The counter ``unspanned_us`` is the part
 of ``run`` that no timer opened directly inside it covered.
@@ -67,7 +71,7 @@ from kmer_counter_tpu_torch.io.dump import dump_table, load_table
 from kmer_counter_tpu_torch.io.fastq import DirectoryInput, ParallelIngest
 from kmer_counter_tpu_torch.metrics import Metrics, device_trace
 from kmer_counter_tpu_torch.ops.pipeline import chunk_slots
-from kmer_counter_tpu_torch.ops.u32 import MASK, SENTINEL, copy_back, from_numpy, to_numpy
+from kmer_counter_tpu_torch.ops.u32 import MASK, SENTINEL, counts_to_host, from_numpy, lanes_to_host, to_numpy
 from kmer_counter_tpu_torch.parallel.mesh import allgather_host, global_any, global_max_int, make_mesh
 from kmer_counter_tpu_torch.parallel.pipeline import ShardedCounter, ShardedCounter2
 
@@ -139,6 +143,12 @@ def _absorb(stats: RunStats, chunk) -> None:
     stats.reads += chunk.n_reads
     stats.bases += chunk.n_reads * chunk.line_length
     stats.per_file[name] = stats.per_file.get(name, 0) + chunk.n_reads
+
+
+def _allt_record(NL: int, allt: int) -> tuple[np.ndarray, np.ndarray]:
+    """The all-T record of a two-level count (k % 16 == 0, forward) as host
+    rows: T^k packs to all-ones in every active lane, the largest key."""
+    return np.full((1, NL), MASK, np.uint32), np.asarray([allt], np.uint32)
 
 
 def _start_monitor(opts: Options, stats: RunStats, gauge_extra):
@@ -313,17 +323,22 @@ class CountEngine:
         with contextlib.closing(self._chunks(source, feed, None, stats, metrics,
                                              resumed.reads_absorbed if resumed else 0,
                                              resumed.files if resumed else None)) as chunks:
-            lanes_np, counts_np = count(chunks, feed, line_length, reads_per_chunk, table_slots, stats, metrics,
+            lanes, counts, allt = count(chunks, feed, line_length, reads_per_chunk, table_slots, stats, metrics,
                                         resumed, per_chunk)
         stats.consolidations += 1  # the finalize's
+        NL = lanes.shape[0]
         if self._scheduler is not None:
-            # The final table joins the spill runs; the host merge writes
-            # the sorted output.
+            # The final table joins the spill runs as host rows; the host
+            # merge writes the sorted output.
             from kmer_counter_tpu_torch.io import spill as spill_io
 
+            rows = lanes_to_host(lanes, metrics)
+            if allt:
+                allt_lanes, allt_counts = _allt_record(NL, allt)
+                rows, counts = np.concatenate([rows, allt_lanes]), np.concatenate([counts, allt_counts])
             stats.spilled_runs += 1
             self._scheduler.add_run(
-                spill_io.write_run(os.path.join(opts.temp_dir, "final_table.run"), lanes_np, counts_np)
+                spill_io.write_run(os.path.join(opts.temp_dir, "final_table.run"), rows, counts)
             )
             with metrics.timer("merge"):
                 stats.distinct_kmers = self._scheduler.finish(opts.output_file)
@@ -331,9 +346,11 @@ class CountEngine:
             _, counts_all = load_table(opts.output_file, k)
             stats.total_kmers = int(counts_all.sum(dtype=np.uint64))
         else:
-            stats.distinct_kmers = len(counts_np)
-            stats.total_kmers = int(counts_np.sum(dtype=np.uint64))
-            dump_table(opts.output_file, lanes_np, counts_np, metrics=metrics)
+            stats.distinct_kmers = len(counts) + bool(allt)
+            stats.total_kmers = int(counts.sum(dtype=np.uint64)) + allt
+            dump_table(opts.output_file, lanes, counts, metrics=metrics)
+            if allt:
+                dump_table(opts.output_file, *_allt_record(NL, allt), append=True, metrics=metrics)
 
     # ---- checkpoints and spill -------------------------------------------
 
@@ -432,8 +449,9 @@ class CountEngine:
     def _count_two_level(self, chunks, feed, line_length, reads_per_chunk, table_slots, stats, metrics, resumed,
                          per_chunk):
         """The two-level chunk loop (counterpart of
-        ``CountEngine._run_two_level``); returns the finalized (lanes,
-        counts) on the host."""
+        ``CountEngine._run_two_level``); returns the finalized table as
+        (lanes ``[NL, U]`` on the device, counts on the host, the all-T
+        count): table2.finalize_host."""
         from kmer_counter_tpu_torch.ops import table2 as t2
         from kmer_counter_tpu_torch.ops.pipeline import count_step_two_level
 
@@ -534,7 +552,7 @@ class CountEngine:
                          per_chunk):
         """The one-level chunk loop (counterpart of
         ``CountEngine._run_one_level``); returns the finalized (lanes,
-        counts) on the host."""
+        counts) as ``_count_two_level`` does."""
         from kmer_counter_tpu_torch.ops import table as t1
         from kmer_counter_tpu_torch.ops.pipeline import extract_chunk
 
@@ -597,7 +615,8 @@ class CountEngine:
 
         with metrics.timer("finalize"):
             table = t1.consolidate(table)
-            return copy_back(table.lanes, table.counts, table.offset, metrics)
+            # The one-level table counts the all-T k-mer among its rows.
+            return table.lanes[:, : table.offset], counts_to_host(table.counts, table.offset, metrics), 0
 
 
 class MeshCountEngine(CountEngine):
@@ -838,8 +857,7 @@ class MeshCountEngine(CountEngine):
         # The all-T side count (two-level, k % 16 == 0, forward): T^k is
         # the largest key, so its record is the last of the last range.
         allt = counter.allt_total() & MASK
-        allt_lanes = np.full((1, NL), 0xFFFFFFFF, np.uint32)
-        allt_counts = np.asarray([allt], np.uint32)
+        allt_lanes, allt_counts = _allt_record(NL, allt)
         with metrics.timer("consolidate"):
             counter.close(cap, spill)
         if not multi and self._scheduler is None and cap is not None and counter.route_rounds(cap) > 1:

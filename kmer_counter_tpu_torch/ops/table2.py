@@ -20,8 +20,9 @@ a consolidation and after ``grow2`` — so the prefix stays ascending, which
 the kernel requires.  (The JAX grow2 pads with zero keys instead.)
 
 All-T special case (k % 16 == 0, forward): the all-T k-mer equals the
-sentinel, so it is counted in the side scalar ``allt`` and re-materialized
-by ``finalize_host`` as the last (maximum) record.
+sentinel, so it is counted in the side scalar ``allt``, which
+``finalize_host`` returns beside the table for the caller to write as the
+last (maximum) record.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from kmer_counter_tpu_torch.ops.merge_runs import (
     merge_sorted_runs_fold_bitonic,
 )
 from kmer_counter_tpu_torch.ops.sortcount import lex_argsort, run_heads, run_totals, sort_reduce
-from kmer_counter_tpu_torch.ops.u32 import MASK, SENTINEL, copy_back, from_numpy, narrow, to_numpy, widen
+from kmer_counter_tpu_torch.ops.u32 import MASK, SENTINEL, counts_to_host, from_numpy, narrow, to_numpy, widen
 
 
 @dataclass
@@ -236,14 +237,18 @@ def finalize2(table: TwoLevelTable, live: int | None = None):
 
 
 def finalize_host(table: TwoLevelTable, k: int, live: int | None = None,
-                  metrics=None) -> tuple[np.ndarray, np.ndarray]:
-    """The checked host-side finalize: merges any outstanding raw region
-    (a nonzero ``lost`` is a hard error), deduplicates, and re-materializes
-    the all-T record.  ``live``: the exact prefix rows in use, when the
-    caller holds it (see finalize2); a merge here supplies its own.
-    ``metrics``: the copy back is timed and counted there (u32.copy_back).
-    Returns (lanes ``[U, NL] uint32``, counts ``[U] uint32``) sorted
-    ascending, ready for io.dump.dump_table."""
+                  metrics=None) -> tuple[torch.Tensor, np.ndarray, int]:
+    """The checked finalize: merges any outstanding raw region (a nonzero
+    ``lost`` is a hard error), deduplicates, and checks that the all-T key
+    is not among the rows.  ``live``: the exact prefix rows in use, when
+    the caller holds it (see finalize2); a merge here supplies its own.
+    ``metrics``: the counts' copy back is timed and counted there
+    (u32.counts_to_host).  Returns (lanes ``[NL, U] int32``, lane-major on
+    the table's device, counts ``[U] uint32`` on the host, the all-T
+    count) sorted ascending: the lanes and counts ready for
+    io.dump.dump_table, and the all-T record, when its count is not 0, the
+    table's last (T^k packs to all-ones in every active lane: the maximum
+    key)."""
     if table.raw_off > 0:
         table, live, lost = consolidate3(table)
         if lost:
@@ -252,21 +257,13 @@ def finalize_host(table: TwoLevelTable, k: int, live: int | None = None,
                 "prefix region undersized (grow2 before finalize)"
             )
     lanes, counts, n = finalize2(table, live)
-    NL = table.prefix_lanes.shape[0]
-    out_lanes, out_counts = copy_back(lanes, counts, n, metrics)
     allt = int(table.allt) & MASK
-    if allt:
-        # T^k packs to all-ones in every active lane: the maximum key, so
-        # appending keeps the table sorted.
-        tk = np.full((1, NL), 0xFFFFFFFF, np.uint32)
-        if out_lanes.shape[0] and np.array_equal(out_lanes[-1], tk[0]):
-            raise RuntimeError(
-                "all-T key present in the key stream despite the side "
-                "counter: extract_chunk_keys contract violated"
-            )
-        out_lanes = np.concatenate([out_lanes, tk], axis=0)
-        out_counts = np.concatenate([out_counts, np.asarray([allt], np.uint32)])
-    return np.ascontiguousarray(out_lanes), out_counts
+    if allt and n and bool((lanes[:, n - 1] == SENTINEL).all()):
+        raise RuntimeError(
+            "all-T key present in the key stream despite the side "
+            "counter: extract_chunk_keys contract violated"
+        )
+    return lanes[:, :n], counts_to_host(counts, n, metrics), allt
 
 
 def table_from_numpy(

@@ -41,18 +41,32 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().contiguous().numpy().view(np.uint32)
 
 
-def copy_back(lanes: torch.Tensor, counts: torch.Tensor, n: int, metrics=None) -> tuple[np.ndarray, np.ndarray]:
-    """The first ``n`` rows of a finalized table on the host: (lanes ``[n,
-    NL] uint32`` contiguous, counts ``[n] uint32``).  With ``metrics``, in
-    its ``finalize.copy_back`` span, which holds the copies from the device
-    (``finalize.copy_back.d2h``, their bytes counted as ``d2h_bytes``) and
-    then the lanes' transpose on the host (``finalize.copy_back.transpose``)."""
+def counts_to_host(counts: torch.Tensor, n: int, metrics=None) -> np.ndarray:
+    """The first ``n`` counts of a finalized table on the host, ``[n]
+    uint32``, in a pinned buffer for a CUDA table: the copy back of both
+    count loops (the lanes stay where they lie, for io.dump).  With
+    ``metrics``, in its ``finalize.copy_back`` span, the copy in
+    ``finalize.copy_back.d2h`` and its bytes counted as ``d2h_bytes``."""
     with span(metrics, "finalize.copy_back"):
         with span(metrics, "finalize.copy_back.d2h"):
-            host_lanes = to_numpy(lanes[:, :n])
-            host_counts = to_numpy(counts[:n])
-        with span(metrics, "finalize.copy_back.transpose"):
-            host_lanes = np.ascontiguousarray(host_lanes.T)
+            host = torch.empty(n, dtype=torch.int32, pin_memory=counts.is_cuda)
+            host.copy_(counts[:n])
     if metrics is not None:
-        metrics.count("d2h_bytes", n * (lanes.shape[0] + 1) * 4)
-    return host_lanes, host_counts
+        metrics.count("d2h_bytes", 4 * n)
+    return host.numpy().view(np.uint32)
+
+
+def lanes_to_host(lanes: torch.Tensor, metrics=None) -> np.ndarray:
+    """Lane-major lanes ``[NL, n]`` as host rows ``[n, NL] uint32``,
+    contiguous: for a finalized table that joins spill runs.  With
+    ``metrics``, in its ``finalize.copy_back`` span, which holds the copy
+    (``finalize.copy_back.d2h``, its bytes counted as ``d2h_bytes``) and
+    then the transpose on the host (``finalize.copy_back.transpose``)."""
+    with span(metrics, "finalize.copy_back"):
+        with span(metrics, "finalize.copy_back.d2h"):
+            host = to_numpy(lanes)
+        with span(metrics, "finalize.copy_back.transpose"):
+            host = np.ascontiguousarray(host.T)
+    if metrics is not None:
+        metrics.count("d2h_bytes", 4 * host.size)
+    return host

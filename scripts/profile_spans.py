@@ -14,8 +14,8 @@ cell's flags, each the wall of one call of the CLI entry
 read back: the main thread's ``kmer.*`` spans summed by name, the
 prefetch thread's, the part of ``kmer.run`` that no other main-thread
 span covers, the rate of the device-to-host copies launched inside
-``kmer.finalize.copy_back`` (the ``d2h_bytes`` counter over their device
-time), and the longest stretches with nothing on the card, each named by
+``kmer.run`` (the ``d2h_bytes`` counter, the finalize's copy of the counts
+and the dump's record image, over their device time), and the longest stretches with nothing on the card, each named by
 the innermost program span at its middle.  A tree without the spans gives
 the walls alone.  One JSON line a count on standard output, and one with
 the medians last."""
@@ -72,7 +72,7 @@ def read_trace(path: str, d2h_bytes: int | None, tr) -> dict:
     events = tr.read_chrome_trace(trace) + spans
     window = (run["ts"], run["ts"] + run["dur"])
     d2h = [e for e in events if e["kind"] != "device" or e["name"].startswith(D2H)]
-    us, n = tr.layer_device_us(d2h, PREFIX + "finalize.copy_back")
+    us, n = tr.layer_device_us(d2h, PREFIX + "run")
     by_name: dict = {}
     for group, key in ((main, "main_ms"), (other, "prefetch_ms")):
         sums: dict = {}

@@ -30,7 +30,8 @@ below).  So one chip call can time two commits in turns (A, B, B, A):
 archive`` of another commit), which builds its kernels from its own
 ``csrc/``; the operands, checks and timing stay this checkout's.
 ``--kernels`` times only the named ones (chip_smoke.py's names,
-``chunk_step``, ``probes``, ``row_gather_host`` and ``pair_merge_host``).
+``chunk_step``, ``probes``, ``row_gather_host``, ``pair_merge_host`` and
+``record_pack``, the dump's record pack at the benchmark's two table sizes).
 Prints the card's name and power limit, chip_smoke.py's kernel lines, then each
 source's nvcc report (registers and spill bytes of each instance, then
 the report itself).
@@ -130,6 +131,24 @@ def pair_merge_floor(cs, device, reps=50):
         "launches": {name: v["launches"] for name, v in traced.items()}})
 
 
+# The dump's record pack (R1, csrc/records.cu) at the benchmark's finalized
+# tables, k = 31 (NL = 2): the distinct rows of the clean E. coli-sized
+# count and of the count with 1% substitutions, every count nonzero.
+RECORD_PACK_ROWS = {"ecoli": 4_641_652, "ecoli_err": 39_900_000}
+
+
+def record_pack(cs, device):
+    """R1 at RECORD_PACK_ROWS: chip_smoke.py's line for a launch shape
+    (checked against the plain version, CUDA-event times of both, the
+    kernels' device time in a traced call, the bound)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(cs.SEED)
+    for name, n in RECORD_PACK_ROWS.items():
+        cs.r1_at_shape(name, (2, n, n), gen, device)
+        torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
@@ -157,13 +176,15 @@ def main():
     gen = torch.Generator(device=device).manual_seed(cs.SEED)
     names = args.kernels.split(",") if args.kernels else [
         cs.SORT["name"], cs.K2["name"], cs.K1["name"], *cs.MERGES, cs.K8["name"], "chunk_step", "probes",
-        "row_gather_host", "pair_merge_host"]
+        "row_gather_host", "pair_merge_host", "record_pack"]
     for name in names:
         if name == "chunk_step":
             cs.time_chunk_step(device)
         elif name == "probes":
             cs.phase_probes(device, cases)
             pair_merge_floor(cs, device)
+        elif name == "record_pack":
+            record_pack(cs, device)
         elif name in ("row_gather_host", "pair_merge_host"):
             launch_path_host(cs, device, name.removesuffix("_host"))
         elif name == cs.K8["name"]:

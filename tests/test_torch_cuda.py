@@ -692,6 +692,128 @@ def _compact_vs_plain(ops, live, num_keys, device):
     assert torch.equal(got, cl.compact_live_reference(ops, live, num_keys))
 
 
+# ---- the dump's record pack (csrc/records.cu) --------------------------------
+
+# Rows of a record pack tile (record_pack_kernel) and the sizes of its cases:
+# around the tile, and ragged.
+RECORD_TILE = 1024
+RECORD_SIZES = [1, 31, RECORD_TILE - 1, RECORD_TILE, RECORD_TILE + 1, 4097, 100_003]
+
+
+def record_case(rng, NL, n, zero_share=0.1):
+    """Row-major uint32 lanes [n, NL] and counts [n], a share of them 0 (so
+    that the kept rows before most tiles are no multiple of 4), the last
+    row the all-ones key."""
+    lanes = rng.integers(0, 2**32, (n, NL), dtype=np.uint64).astype(np.uint32)
+    counts = rng.integers(1, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    counts[rng.random(n) < zero_share] = 0
+    if n:
+        lanes[-1] = M
+    return lanes, counts
+
+
+def _pack_vs_plain(lanes_rows, counts, device, pad=0, offset=0):
+    """The kernel against the plain version on a column slice [offset,
+    offset + n) of lanes ``n + pad + offset`` apart."""
+    from kmer_counter_tpu_torch.ops import record_pack as rp
+    from kmer_counter_tpu_torch.ops.u32 import from_numpy
+
+    n, NL = lanes_rows.shape
+    buf = np.zeros((NL, offset + n + pad), np.uint32)
+    buf[:, offset:offset + n] = lanes_rows.T
+    lanes = from_numpy(buf, device)[:, offset:offset + n]
+    dev_counts = from_numpy(counts, device)
+    before = rp.launches
+    got = rp.pack_records(lanes, dev_counts)
+    torch.cuda.synchronize()
+    assert rp.launches == before + (1 if n else 0)
+    assert got.device == lanes.device and got.dtype is torch.uint8
+    want = rp.pack_records_reference(lanes.cpu(), dev_counts.cpu())
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_record_pack_tile_rows(cuda):
+    from kmer_counter_tpu_torch.ops import record_pack as rp
+
+    assert rp.tile_rows() == RECORD_TILE
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("NL", range(1, 9))
+@pytest.mark.parametrize("n", RECORD_SIZES)
+def test_record_pack_kernel(cuda, NL, n):
+    lanes, counts = record_case(np.random.default_rng(1000 * NL + n), NL, n)
+    _pack_vs_plain(lanes, counts, cuda, pad=5, offset=n % 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("zero_share", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("NL", [1, 2, 3])
+def test_record_pack_kernel_dense_and_sparse(cuda, NL, zero_share):
+    lanes, counts = record_case(np.random.default_rng(NL), NL, 3 * RECORD_TILE + 7, zero_share)
+    _pack_vs_plain(lanes, counts, cuda)
+    _pack_vs_plain(np.zeros((0, NL), np.uint32), np.zeros(0, np.uint32), cuda)
+
+
+@pytest.mark.gpu
+def test_record_pack_kernel_at_the_main_paths_rows(cuda):
+    # NL = 2 (k = 31), 4.6M rows: the clean E. coli count's table.
+    lanes, counts = record_case(np.random.default_rng(31), 2, 4_641_589, 0.001)
+    _pack_vs_plain(lanes, counts, cuda, pad=1_000_003)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,append", [(31, False), (55, True), (128, False)])
+def test_dump_table_of_a_cuda_table_writes_the_host_routes_bytes(cuda, tmp_path, k, append):
+    from kmer_counter_tpu_torch import metrics, records
+    from kmer_counter_tpu_torch.io.dump import dump_table
+    from kmer_counter_tpu_torch.ops.u32 import from_numpy
+
+    NL = records.active_lanes(k)
+    lanes, counts = record_case(np.random.default_rng(k), NL, 50_001)
+    paths = tmp_path / "host.bin", tmp_path / "card.bin"
+    if append:
+        for p in paths:
+            p.write_bytes(b"head")
+    m = metrics.Metrics()
+    n_host = dump_table(str(paths[0]), lanes, counts, append=append)
+    n_card = dump_table(str(paths[1]), from_numpy(np.ascontiguousarray(lanes.T), cuda), counts, append=append,
+                        metrics=m)
+    assert n_host == n_card == m.counters["dump_records_card"] > 0
+    assert paths[0].read_bytes() == paths[1].read_bytes()
+    assert m.counters["d2h_bytes"] == n_card * records.record_size_bytes(k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("table_impl,k,canonical", [("two", 31, True), ("one", 31, True), ("two", 16, False)])
+def test_a_cuda_count_formats_its_dump_on_the_card(cuda, tmp_path, table_impl, k, canonical):
+    # One record pack a count; the copy back is the counts, and the output
+    # takes the record image from the card (a two-level forward k = 16
+    # count appends its all-T record as one host row).
+    from kmer_counter_tpu import golden
+    from kmer_counter_tpu.utils import seqgen
+    from kmer_counter_tpu_torch import engine, records
+    from kmer_counter_tpu_torch.config import Options
+    from kmer_counter_tpu_torch.ops import record_pack as rp
+
+    rng = np.random.default_rng(k)
+    reads = seqgen.sample_reads(rng, seqgen.random_genome(rng, 20_000), 600, 150, 0.01)
+    reads[3] = ord("T")
+    seqgen.write_fastq_file(os.path.join(tmp_path, "in", "a.fastq"), reads)
+    opts = Options(kmer_length=k, canonical=canonical, input_dir=str(tmp_path / "in"),
+                   output_file=str(tmp_path / "out.bin"), table_impl=table_impl, table_slots=20000, verbose=0)
+    before = rp.launches
+    stats = engine.CountEngine(opts, device=cuda).run()
+    assert (tmp_path / "out.bin").read_bytes() == golden.serialize_counter(golden.count_reads(reads, k, canonical))
+    assert rp.launches == before + 1
+    counters = stats.metrics["counters"]
+    allt = int(table_impl == "two" and not canonical)
+    assert counters["dump_records_card"] == stats.distinct_kmers - allt > 0
+    assert counters.get("dump_records_host", 0) == allt
+    assert counters["d2h_bytes"] == (stats.distinct_kmers - allt) * (4 + records.record_size_bytes(k))
+
+
 @pytest.mark.gpu
 def test_compact_tile_rows(cuda):
     from kmer_counter_tpu_torch.ops import compact_live as cl
@@ -1417,6 +1539,12 @@ def wrapper_stream_case(name, rng):
         ops, live = compact_case(rng, 2, 50_000, 0.5)
         return ([*ops, live], lambda *v: cl.compact_live(list(v[:-1]), v[-1], 2),
                 lambda *v: cl.compact_live_reference(list(v[:-1]), v[-1], 2), torch.equal, lambda: cl.launches)
+    if name == "record_pack":
+        from kmer_counter_tpu_torch.ops import record_pack as rp
+
+        lanes, counts = record_case(rng, 2, 50_000)
+        return ([np.ascontiguousarray(lanes.T), counts], rp.pack_records, rp.pack_records_reference, torch.equal,
+                lambda: rp.launches)
     a, b = probe_merge_case(rng, 3, 5000, 3001)
     return ([a, np.ascontiguousarray(b[:, ::-1])], lambda a, b: probes.pair_merge(a, b, b_descending=True),
             lambda a, b: probes.pair_merge_reference(a, b, b_descending=True), torch.equal,
@@ -1424,7 +1552,8 @@ def wrapper_stream_case(name, rng):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["fused_extract", "lane_sort", "merge_fold_compact", "compact_live", "pair_merge"])
+@pytest.mark.parametrize("name", ["fused_extract", "lane_sort", "merge_fold_compact", "compact_live", "pair_merge",
+                                  "record_pack"])
 def test_wrapper_follows_the_current_stream(cuda, name):
     """The wrapper launched inside torch.cuda.stream(side).  Its inputs are
     written on side after a spin of tens of milliseconds, so a launch on any

@@ -41,6 +41,7 @@ PORT_MODULES = [
     "kmer_counter_tpu_torch.ops.merge_runs",
     "kmer_counter_tpu_torch.ops.pipeline",
     "kmer_counter_tpu_torch.ops.probes",
+    "kmer_counter_tpu_torch.ops.record_pack",
     "kmer_counter_tpu_torch.ops.sortcount",
     "kmer_counter_tpu_torch.ops.table",
     "kmer_counter_tpu_torch.ops.table2",

@@ -16,14 +16,17 @@ from kmer_counter_tpu_torch import engine, metrics, records
 from kmer_counter_tpu_torch.__main__ import main
 from kmer_counter_tpu_torch.config import Options
 from kmer_counter_tpu_torch.io.dump import dump_table
-from kmer_counter_tpu_torch.ops.u32 import copy_back, from_numpy
+from kmer_counter_tpu_torch.ops.u32 import counts_to_host, from_numpy, lanes_to_host
 from kmer_counter_tpu_torch.parallel.mesh import make_mesh
 
 from tests.test_ingest import random_seqs, write_fastq
 
 CPU = torch.device("cpu")
+# The main route keeps the finalized lanes on the card: the copy back is the
+# counts' copy alone (no host transpose), and the dump formats on the card.
 MAIN_SPANS = ("run", "setup", "ingest_wait", "dispatch", "consolidate", "finalize", "finalize.copy_back",
-              "finalize.copy_back.d2h", "finalize.copy_back.transpose", "close", "dump", "dump.format", "dump.write")
+              "finalize.copy_back.d2h", "close", "dump", "dump.format", "dump.format.pack", "dump.format.d2h",
+              "dump.write")
 INGEST_SPANS = ("ingest", "feed.acquire", "stage")
 
 
@@ -173,9 +176,10 @@ def test_a_count_has_every_span(tmp_path, rng, table_impl):
     assert stats.wall_seconds == pytest.approx(timers["run"], abs=1e-6)
     assert 0 <= stats.metrics["counters"]["unspanned_us"] <= 1e6 * timers["run"]
     assert timers["dump.format"] + timers["dump.write"] <= timers["dump"] + 1e-5
+    assert timers["dump.format.pack"] + timers["dump.format.d2h"] <= timers["dump.format"] + 1e-5
     assert timers["finalize.copy_back"] <= timers["finalize"] + 1e-5
-    copy_parts = timers["finalize.copy_back.d2h"] + timers["finalize.copy_back.transpose"]
-    assert copy_parts <= timers["finalize.copy_back"] + 1e-5
+    assert timers["finalize.copy_back.d2h"] <= timers["finalize.copy_back"] + 1e-5
+    assert "finalize.copy_back.transpose" not in timers
 
 
 @pytest.mark.parametrize("table_impl", ["two", "one"])
@@ -200,11 +204,16 @@ def test_a_mesh_count_that_spills_inside_its_consolidations_is_not_taken_off_twi
 
 @pytest.mark.parametrize("table_impl", ["two", "one"])
 def test_d2h_bytes_are_the_finalized_rows(tmp_path, rng, table_impl):
+    # The counts of every finalized row.  On the CPU the record image is
+    # the plain pack's host tensor, so no copy adds to it (on the card the
+    # image counts too: tests/test_torch_cuda.py).
     k = 21
     stats = _count(tmp_path, rng, table_impl, k=k)
-    NL = records.active_lanes(k)
+    counters = stats.metrics["counters"]
     assert stats.distinct_kmers > 0
-    assert stats.metrics["counters"]["d2h_bytes"] == stats.distinct_kmers * (NL + 1) * 4
+    assert counters["dump_records_host"] == stats.distinct_kmers
+    assert "dump_records_card" not in counters
+    assert counters["d2h_bytes"] == stats.distinct_kmers * 4
 
 
 @pytest.mark.parametrize("n", [0, 5, 9])
@@ -213,14 +222,16 @@ def test_copy_back_is_the_table_on_the_host(rng, n):
     lanes = rng.integers(0, 2**32, (NL, cap), dtype=np.uint64).astype(np.uint32)
     counts = rng.integers(0, 2**32, cap, dtype=np.uint64).astype(np.uint32)
     m = metrics.Metrics()
-    got_lanes, got_counts = copy_back(from_numpy(lanes, CPU), from_numpy(counts, CPU), n, m)
+    got_counts = counts_to_host(from_numpy(counts, CPU), n, m)
+    got_lanes = lanes_to_host(from_numpy(lanes, CPU)[:, :n], m)
     assert got_lanes.flags.c_contiguous and got_lanes.shape == (n, NL)
     np.testing.assert_array_equal(got_lanes, lanes[:, :n].T)
     np.testing.assert_array_equal(got_counts, counts[:n])
+    assert got_counts.dtype == np.uint32
     assert m.counters["d2h_bytes"] == n * (NL + 1) * 4
-    assert m.timer_calls == {"finalize.copy_back": 1, "finalize.copy_back.d2h": 1, "finalize.copy_back.transpose": 1}
-    plain = copy_back(from_numpy(lanes, CPU), from_numpy(counts, CPU), n)
-    np.testing.assert_array_equal(plain[0], got_lanes)
+    assert m.timer_calls == {"finalize.copy_back": 2, "finalize.copy_back.d2h": 2, "finalize.copy_back.transpose": 1}
+    np.testing.assert_array_equal(lanes_to_host(from_numpy(lanes, CPU)[:, :n]), got_lanes)
+    np.testing.assert_array_equal(counts_to_host(from_numpy(counts, CPU), n), got_counts)
 
 
 @pytest.mark.parametrize("k,num_unique,append", [(15, None, False), (33, 17, False), (101, None, True)])

@@ -67,8 +67,22 @@ def golden_table(chunks, k, canonical):
     return records.words_to_lanes(words)[:, : records.active_lanes(k)], counts
 
 
+def on_host(out):
+    """A finalize's table as host rows: the port's (lanes [NL, U] tensor,
+    counts, all-T count) with the all-T record appended as the last row,
+    as the JAX package's finalize_host returns it."""
+    if len(out) == 2:
+        return out
+    lanes, counts, allt = out
+    lanes = to_numpy(lanes).T
+    if allt:
+        lanes = np.concatenate([lanes, np.full((1, lanes.shape[1]), 0xFFFFFFFF, np.uint32)])
+        counts = np.concatenate([counts, np.asarray([allt], np.uint32)])
+    return lanes, counts
+
+
 def assert_same(port_out, jax_out, want):
-    for got in (port_out, jax_out):
+    for got in (on_host(port_out), on_host(jax_out)):
         np.testing.assert_array_equal(got[0], want[0].reshape(got[0].shape))
         np.testing.assert_array_equal(got[1], want[1])
 
@@ -98,8 +112,10 @@ def test_all_t_side_count_k16(rng, canonical):
     assert (int(port.allt) > 0) == (not canonical)
     port_out = t2.finalize_host(port, k)
     assert_same(port_out, jt2.finalize_host(jax_t, k), golden_table(chunks, k, canonical))
-    if not canonical:  # T^k is re-materialized as the last, maximum record
-        assert (port_out[0][-1] == 0xFFFFFFFF).all()
+    # T^k's count comes back beside the table, for the last, maximum record
+    assert (port_out[2] > 0) == (not canonical)
+    if not canonical:
+        assert (on_host(port_out)[0][-1] == 0xFFFFFFFF).all()
 
 
 @pytest.mark.parametrize("k,canonical", [(15, False), (31, True), (55, False)])
