@@ -2,7 +2,7 @@
 """The readings that the limits of ``correct`` are set from, on the card,
 at a cell's own size, in one process:
 
-    python3 gpubench/controls/readings.py --workload k31c_two.ecoli \\
+    python3 gpubench/controls/readings.py --workload k31c_two.ecoli_err \\
         --seeds 11,12,13 --control-seeds 21,22,23 [--faults 31] [--seconds 3]
 
 For each of ``--seeds`` a run of the program as configured (the lower

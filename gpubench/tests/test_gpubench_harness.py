@@ -23,14 +23,17 @@ def root(tmp_path_factory):
     return tiny_checkout(tmp_path_factory.mktemp("checkout"))
 
 
-def run(root, tmp_path, workload="tiny.mini", seed=3, traced=False, **kw):
+def run(root, tmp_path, workload="tiny.mini", seed=3, traced=False, seconds=0.3, **kw):
     cell = cells.resolve(workload, root)
-    return harness.run(cell, seed, 0.3, traced, CPU, cache_dir=str(tmp_path / "cache"), log=lambda _: None, **kw)
+    return harness.run(cell, seed, seconds, traced, CPU, cache_dir=str(tmp_path / "cache"), log=lambda _: None,
+                       **kw)
 
 
-@pytest.mark.parametrize("workload", ["tiny.mini", "tiny1.mini"])
+@pytest.mark.parametrize("workload", ["tiny.mini", "tiny1.mini", "tiny55f.mini"])
 def test_the_count_loop_gives_the_references_dump(root, tmp_path, workload):
-    r = run(root, tmp_path, workload)
+    # A window long enough for two counts on a loaded host (a tiny count
+    # takes 0.05-0.3 s on the CPU).
+    r = run(root, tmp_path, workload, seconds=1.0)
     assert r["correct"] is True and r["failed"] == 0 and r["attempted"] >= 2
     assert all(c["value"] == 0 for k, c in r["checks"].items() if k != "peak_bytes")
     # A second run of the seed takes the reference's digest from the cache.
@@ -57,14 +60,15 @@ def test_the_result_has_the_contracts_shape(root, tmp_path, traced):
     json.dumps(r)
 
 
-def test_the_control_is_not_correct(root, tmp_path):
-    cell = cells.resolve("tiny.mini", root)
-    r = run(root, tmp_path, program_flags=faults.control_flags(cell))
+@pytest.mark.parametrize("workload", ["tiny.mini", "tiny55f.mini"])
+def test_the_control_is_not_correct(root, tmp_path, workload):
+    cell = cells.resolve(workload, root)
+    r = run(root, tmp_path, workload, program_flags=faults.control_flags(cell))
     assert r["correct"] is False and r["checks"]["records_wrong"]["value"] > 0
     assert r["failed"] == r["attempted"]
 
 
-@pytest.mark.parametrize("workload", ["tiny.mini", "tiny1.mini"])
+@pytest.mark.parametrize("workload", ["tiny.mini", "tiny1.mini", "tiny55f.mini"])
 @pytest.mark.parametrize("fault", faults.FAULTS)
 def test_each_planted_fault_is_not_correct(root, tmp_path, workload, fault):
     with faults.planted(fault):
@@ -102,7 +106,9 @@ def test_a_count_that_raises_fails(root, tmp_path, monkeypatch):
         return original(*a, **kw)
 
     monkeypatch.setattr(engine, "run_count", third_raises)
-    r = run(root, tmp_path)
+    # The third call is the window's second count: a window long enough
+    # for two counts on a loaded host.
+    r = run(root, tmp_path, seconds=1.0)
     assert r["correct"] is False and r["checks"]["counts_raised"]["value"] == 1 and r["failed"] >= 1
 
 
@@ -123,7 +129,7 @@ def test_main_refuses_a_process_that_loaded_jax(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     monkeypatch.setitem(sys.modules, "jax", type(sys)("jax"))
     monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "0")
-    assert harness.main(["--workload", "k31c_two.ecoli", "--seed", "1", "--seconds", "1"]) == 3
+    assert harness.main(["--workload", "k31c_two.ecoli_err", "--seed", "1", "--seconds", "1"]) == 3
     out, err = capsys.readouterr()
     assert out == "" and "jax" in err
 
@@ -131,7 +137,7 @@ def test_main_refuses_a_process_that_loaded_jax(monkeypatch, capsys):
 def test_run_py_exits_without_a_result_where_there_is_no_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the refusal is for a machine without one")
-    p = subprocess.run([sys.executable, os.path.join(cells.BENCH_DIR, "run.py"), "--workload", "k31c_two.ecoli",
+    p = subprocess.run([sys.executable, os.path.join(cells.BENCH_DIR, "run.py"), "--workload", "k31c_two.ecoli_err",
                         "--seed", "1", "--seconds", "1", "--trace", "0"], capture_output=True, text=True,
                        cwd=cells.ROOT, timeout=120)
     assert p.returncode != 0 and p.stdout.strip() == ""

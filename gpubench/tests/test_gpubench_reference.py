@@ -46,14 +46,27 @@ def test_reference_equals_a_brute_force_count(k, canonical):
     assert dump_bytes(words, counts) == brute_force(reads, k, canonical)
 
 
-def test_records_wrong():
-    rec = lambda key, n: int(key).to_bytes(8, "little") + int(n).to_bytes(4, "little")  # noqa: E731
+@pytest.mark.parametrize("words", [1, 2], ids=["12_byte", "20_byte"])
+def test_records_wrong(words):
+    """Records of ``words`` key words (1: k up to 32; 2: k 33..64) and a count."""
+    size = 8 * words + 4
+
+    def rec(key, n, word=None):  # key words key, key+1, ...; ``word`` replaces the last one
+        keys = [key + w for w in range(words)]
+        if word is not None:
+            keys[-1] = word
+        return b"".join(int(x).to_bytes(8, "little") for x in keys) + int(n).to_bytes(4, "little")
+
     ref = rec(1, 2) + rec(5, 1) + rec(9, 3)
-    assert compare.records_wrong(ref, ref, 12) == 0
-    assert compare.records_wrong(rec(1, 2) + rec(5, 2) + rec(9, 3), ref, 12) == 2  # a count off by one
-    assert compare.records_wrong(rec(1, 2) + rec(9, 3), ref, 12) == 1  # a record missing
-    assert compare.records_wrong(rec(5, 1) + rec(1, 2) + rec(9, 3), ref, 12) == 1  # out of order
-    assert compare.records_wrong(ref + rec(9, 3), ref, 12) == 1  # a record repeated
-    assert compare.records_wrong(rec(1, 2) + rec(1, 2) + rec(9, 3), ref, 12) == 2  # one for another
-    assert compare.records_wrong(ref[:-1], ref, 12) > 0  # a torn record
-    assert compare.records_wrong(b"", ref, 12) == 3
+    assert compare.records_wrong(ref, ref, size) == 0
+    assert compare.records_wrong(rec(1, 2) + rec(5, 2) + rec(9, 3), ref, size) == 2  # a count off by one
+    assert compare.records_wrong(rec(1, 2) + rec(5, 1, word=8) + rec(9, 3), ref, size) == 2  # a key's last word
+    assert compare.records_wrong(rec(1, 2) + rec(9, 3), ref, size) == 1  # a record missing
+    assert compare.records_wrong(rec(5, 1) + rec(1, 2) + rec(9, 3), ref, size) == 1  # out of order
+    assert compare.records_wrong(ref + rec(9, 3), ref, size) == 1  # a record repeated
+    assert compare.records_wrong(rec(1, 2) + rec(1, 2) + rec(9, 3), ref, size) == 2  # one for another
+    assert compare.records_wrong(ref[:-1], ref, size) > 0  # a torn record
+    assert compare.records_wrong(b"", ref, size) == 3
+    if words == 2:  # the first word alone differs
+        first = (7).to_bytes(8, "little") + rec(5, 1)[8:]
+        assert compare.records_wrong(rec(1, 2) + first + rec(9, 3), ref, size) == 2

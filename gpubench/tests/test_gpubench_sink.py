@@ -72,7 +72,7 @@ sys.addaudithook(hook)
 sys.path.insert(0, roots["code"])
 from gpubench import cells, harness
 cell = cells.resolve("tiny.mini", roots["checkout"])
-r = harness.run(cell, 5, 0.5, False, torch.device("cpu"), cache_dir=os.path.join(roots["checkout"], "gpubench", "cache"))
+r = harness.run(cell, 5, 1.5, False, torch.device("cpu"), cache_dir=os.path.join(roots["checkout"], "gpubench", "cache"))
 assert r["correct"] and r["attempted"] >= 2, r
 print(json.dumps(written))
 """

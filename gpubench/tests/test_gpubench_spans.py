@@ -1,8 +1,10 @@
 """The readers of the program's spans and counters (the dump, the copy back
 and its rate, set-up, close, the feed's slot wait, the run's unspanned
-rest), on hand-built windows; the trace's reading unchanged by the
-program's own ``kmer.*`` ranges; and the tiny cell's traced result with
-every program-span metric."""
+rest), on hand-built windows; every reader's reading unchanged by the
+program's own ``kmer.*`` ranges, which the trace keeps; and the tiny
+cell's traced result with every program-span metric."""
+
+import os
 
 import pytest
 import torch
@@ -22,9 +24,6 @@ NEW_SPAN_METRICS = {
     "engine.close_ms": "close",
     "feed.acquire_ms": "feed.acquire",
 }
-EXISTING = ("engine.dispatch_ms", "ingest.parse_ms", "ingest.wait_ms", "feed.stage_ms", "chunk_step.roofline_pct",
-            "two_level.consolidate_ms", "two_level.consolidate_roofline_pct", "one_level.consolidate_ms",
-            "one_level.consolidate_roofline_pct", "finalize.wall_ms", "device.idle_pct")
 DATA = dict(reads=1000, read_length=100, k=31, windows=70_000, valid_windows=60_000, distinct=5_000)
 
 
@@ -141,7 +140,9 @@ def test_every_existing_reading_is_the_same_with_the_programs_spans(trace):
     stats = {"timers_s": TIMERS, "counters": {"d2h_bytes": 10_000, "unspanned_us": 2_000}}
     wins = [Window(counts=counts(stats, stats), data=DATA, events=ev, busy_s=tr.busy_us(ev, window) / 1e6,
                    window_s=(window[1] - window[0]) / 1e6) for ev in (plain, spanned)]
-    for name in EXISTING + tuple(NEW_SPAN_METRICS) + ("engine.unspanned_ms", "finalize.d2h_gbps"):
+    names = [f[:-3] for f in os.listdir(os.path.join(cells.BENCH_DIR, "layer_metrics")) if f.endswith(".py")]
+    assert set(NEW_SPAN_METRICS) | {"engine.unspanned_ms", "finalize.d2h_gbps"} < set(names)
+    for name in names:  # every reader, as the trace now keeps the program's spans
         assert read(name, wins[1]) == read(name, wins[0]), name
     assert read("device.idle_pct", wins[0]) is not None
 

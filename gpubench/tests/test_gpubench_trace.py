@@ -1,6 +1,7 @@
 """The trace's reading: attribution of device intervals to the layer spans
-through their launches, busy and idle time, the breakdown, the roofline
-arithmetic, and the spans around the program's functions."""
+and the program's spans through their launches, busy and idle time, the
+breakdown, the roofline arithmetic, and the spans around the program's
+functions."""
 
 import json
 
@@ -45,6 +46,20 @@ SYNTHETIC = chrome([
 ])
 
 
+# The program's own spans over SYNTHETIC's count: its run; a consolidation
+# opened after the harness span's first launch (as the program's leaves
+# out the prefix's growth); a dump whose write holds the idle stretch
+# 710-880; and the prefetch thread's parse, on another thread.
+PROGRAM_SPANS = [
+    dict(cat="user_annotation", name="kmer.run", ts=2, dur=996, tid=1),
+    dict(cat="user_annotation", name="kmer.consolidate", ts=250, dur=240, tid=1),
+    dict(cat="user_annotation", name="kmer.dump", ts=720, dur=160, tid=1),
+    dict(cat="user_annotation", name="kmer.dump.write", ts=760, dur=110, tid=1),
+    dict(cat="user_annotation", name="kmer.ingest", ts=0, dur=900, tid=2),
+]
+WITH_PROGRAM = {"traceEvents": SYNTHETIC["traceEvents"] + [dict(ph="X", **e) for e in PROGRAM_SPANS]}
+
+
 def test_device_time_is_attributed_to_the_span_that_launched_it():
     events = tr.read_chrome_trace(SYNTHETIC)
     assert tr.layer_device_us(events, "chunk_step") == (50.0, 1)
@@ -52,6 +67,31 @@ def test_device_time_is_attributed_to_the_span_that_launched_it():
     assert tr.layer_device_us(events, "finalize") == (0.0, 0)
     assert tr.window_of(events) == (0.0, 1000.0)
     assert tr.main_tid(events) == 1
+
+
+def test_the_programs_spans_are_kept_under_their_whole_names():
+    events = tr.read_chrome_trace(WITH_PROGRAM)
+    spans = {e["name"] for e in events if e["kind"] == "span"}
+    assert spans == {"count", "chunk_step", "consolidate", "ingest_wait", "kmer.run", "kmer.consolidate",
+                     "kmer.dump", "kmer.dump.write", "kmer.ingest"}
+    # The fold and the copy, launched at 300 and 450; not the sort, at 230.
+    assert tr.layer_device_us(events, "kmer.consolidate") == (50.0, 2)
+    assert tr.layer_device_us(events, "consolidate") == (150.0, 3)
+    assert tr.layer_device_us(events, "kmer.dump") == (0.0, 0)
+    # The ingest thread's launch, at 220, lies in that thread's own kmer.ingest.
+    assert tr.layer_device_us(events, "kmer.ingest") == (10.0, 1)
+    assert tr.window_of(events) == (0.0, 1000.0) and tr.main_tid(events) == 1
+
+
+def test_an_idle_gap_is_named_by_the_innermost_span_of_either_kind():
+    events = tr.read_chrome_trace(WITH_PROGRAM)
+    gaps = tr.idle_gaps(events, tr.window_of(events), 1)
+    assert ["kmer.dump.write", pytest.approx(170e-6)] in gaps  # 710-880, its middle in the write
+    assert ["kmer.run", pytest.approx(170e-6)] in gaps  # 90-260, in the run and no phase of it
+    assert ["kmer.consolidate", pytest.approx(55e-6)] in gaps  # 400-455, inside both consolidations
+    assert ["ingest_wait", pytest.approx(115e-6)] in gaps  # 885-1000, the harness's wait inside the run
+    assert not any(name == "kmer.ingest" for name, _ in gaps)  # another thread's span names nothing
+    assert sum(g[1] for g in gaps) == pytest.approx(745e-6)
 
 
 def test_busy_idle_and_the_breakdown():

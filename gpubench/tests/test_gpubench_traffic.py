@@ -1,6 +1,7 @@
 """The generator: the same seed gives the same reads, of the stated sizes,
 'N' and substitution shares."""
 
+import json
 import os
 
 import numpy as np
@@ -70,7 +71,9 @@ def test_fastq_files_hold_the_reads_in_order(tmp_path):
 
 @pytest.mark.parametrize("traffic", ["ecoli", "ecoli_err"])
 def test_each_mix_states_every_parameter(traffic):
-    cell = next(cells.resolve(w) for w in ("k31c_two." + traffic,))
+    with open(os.path.join(cells.ROOT, "BENCHMARK.json")) as fh:
+        workloads = json.load(fh)["workloads"]
+    cell = cells.resolve(next(w["name"] for w in workloads if w["traffic"] == traffic))
     assert all(p in cell.traffic for p in generate.PARAMS)
     assert cell.traffic["genome_length"] == 4_641_652 and cell.traffic["reads"] == 2_000_000
     assert cell.traffic["substitution_share"] == (0.01 if traffic == "ecoli_err" else 0.0)

@@ -5,16 +5,22 @@ around the engine's calls into each layer (installed only in a traced
 run).  The engine imports the layer functions when it calls them, so
 replacing a module's attribute reaches its calls.
 
+The program opens spans of its own, ``kmer.<timer>`` (one for each of
+its timers, while a profiler records): they are kept too, under their
+full names, so that a reader can take the device time of a program phase
+(``kmer.consolidate``, ``kmer.dump.format``) as it takes a layer's.
+
 The trace: torch.profiler with CPU and CUDA activity over the window,
 exported as a Chrome trace and read back into plain events:
 
-    {"kind": "span", "name": <layer>, "ts", "dur", "tid"}    a harness span
+    {"kind": "span", "name": <layer>, "ts", "dur", "tid"}    a harness span, its prefix stripped
+    {"kind": "span", "name": "kmer.<timer>", ...}            a program span, its name whole
     {"kind": "launch", "corr", "ts", "tid"}                  a CUDA runtime or driver call
     {"kind": "device", "name", "ts", "dur", "corr"}          a kernel, copy or fill
 
-(times in microseconds).  A device event belongs to a layer when the call
-that launched it (same correlation id) falls inside one of the layer's
-spans on the same thread, whatever the kernel's name.
+(times in microseconds).  A device event belongs to a span's name when
+the call that launched it (same correlation id) falls inside one of the
+spans of that name on the same thread, whatever the kernel's name.
 
 The opening with spin kernels is a copy of ``traced`` / ``trace_warm_up``
 in the repository's ``chip_smoke.py``: a stopgap for a torch.profiler
@@ -30,6 +36,9 @@ import json
 import os
 
 PREFIX = "gpubench."
+# The program's own spans (``metrics.SPAN_PREFIX`` of the program, which the
+# benchmark does not import).
+PROGRAM_PREFIX = "kmer."
 PROGRAM = "kmer_counter_tpu_torch"
 # layer span -> the functions it wraps, as (module, attribute).
 SPANS = {
@@ -175,7 +184,9 @@ def traced(fn, trace_path, log):
 
 
 def read_chrome_trace(trace: dict) -> list[dict]:
-    """A Chrome trace's complete events as the plain events above."""
+    """A Chrome trace's complete events as the plain events above: the
+    harness's spans under their layer names, the program's under their
+    whole ``kmer.`` names, so that neither can take the other's name."""
     out = []
     for e in trace.get("traceEvents", []):
         if e.get("ph") != "X":
@@ -186,8 +197,8 @@ def read_chrome_trace(trace: dict) -> list[dict]:
             out.append(dict(kind="device", name=e["name"], ts=ts, dur=dur, corr=args.get("correlation")))
         elif cat in LAUNCH_CATS:
             out.append(dict(kind="launch", corr=args.get("correlation"), ts=ts, tid=e.get("tid")))
-        elif cat == "user_annotation" and e["name"].startswith(PREFIX):
-            out.append(dict(kind="span", name=e["name"][len(PREFIX):], ts=ts, dur=dur, tid=e.get("tid")))
+        elif cat == "user_annotation" and e["name"].startswith((PREFIX, PROGRAM_PREFIX)):
+            out.append(dict(kind="span", name=e["name"].removeprefix(PREFIX), ts=ts, dur=dur, tid=e.get("tid")))
     return out
 
 
@@ -218,7 +229,8 @@ def window_of(events, name="count"):
 
 def layer_device_us(events, layer) -> tuple[float, int]:
     """(device microseconds, device events) of everything launched inside
-    the ``layer`` spans."""
+    the spans named ``layer``: a harness layer (``consolidate``) or a
+    program span (``kmer.consolidate``)."""
     spans: dict = {}
     for e in events:
         if e["kind"] == "span" and e["name"] == layer:
@@ -248,9 +260,9 @@ def busy_us(events, window) -> float:
 
 def idle_gaps(events, window, main_tid, top=10):
     """The ``top`` longest stretches of ``window`` with nothing on the card,
-    each named by the innermost harness span of the main thread at its
-    middle ("count" when none inside a count, "between counts" outside):
-    [[name, seconds], ...]."""
+    each named by the innermost span, the harness's or the program's, of
+    the main thread at its middle (``kmer.dump.write``; "count" when none
+    inside a count, "between counts" outside): [[name, seconds], ...]."""
     lo, hi = window
     busy = _merged([(e["ts"], e["ts"] + e["dur"]) for e in events if e["kind"] == "device"])
     gaps, t = [], lo
