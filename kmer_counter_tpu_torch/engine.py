@@ -314,10 +314,8 @@ class CountEngine:
             line_length = max(usable)
             reads_per_chunk, table_slots = plan_chunks(opts, line_length)
             resumed = self._resume(stats) if opts.checkpoint_dir else None
-            # With spilling on, what a chunk puts on the card sizes the caps.
-            per_chunk = None
-            if opts.temp_dir:
-                per_chunk = bg.Chunk(reads_per_chunk * line_length, chunk_slots(reads_per_chunk, line_length, k))
+            # What a chunk puts on the card sizes the tables' memory plan.
+            per_chunk = bg.Chunk(reads_per_chunk * line_length, chunk_slots(reads_per_chunk, line_length, k))
             feed = self._feed([self.device], reads_per_chunk, line_length)
         count = self._count_one_level if opts.table_impl == "one" else self._count_two_level
         with contextlib.closing(self._chunks(source, feed, None, stats, metrics,
@@ -451,18 +449,29 @@ class CountEngine:
         """The two-level chunk loop (counterpart of
         ``CountEngine._run_two_level``); returns the finalized table as
         (lanes ``[NL, U]`` on the device, counts on the host, the all-T
-        count): table2.finalize_host."""
+        count): table2.finalize_host.
+
+        With a ``tempFileLocation`` the prefix grows up to the spill cap
+        (budget.max_prefix_slots) and its live rows spill past it.  Without
+        one the plan alone keeps ``gpuMemoryLimit``: the prefix grows only
+        as far as the consolidation's steps stay within it
+        (budget.consolidation_prefix_slots), and after each consolidation
+        the raw region gives up the slots that the next one, in the worst
+        case, would need for the prefix (budget.raw_slots_within), so
+        consolidations come more often; where the live rows leave no room
+        for a chunk, the count stops before it allocates."""
         from kmer_counter_tpu_torch.ops import table2 as t2
         from kmer_counter_tpu_torch.ops.pipeline import count_step_two_level
 
         opts = self.opts
         k = opts.kmer_length
         NL = records.active_lanes(k)
+        limit = opts.memory_limit_bytes
         # 1:7 prefix:raw split, as in the JAX engine: more chunks per
         # consolidation; the prefix grows on demand.
         cp = max(table_slots // 8, 1)
         cr = max(table_slots - cp, chunk_slots(reads_per_chunk, line_length, k))
-        cap = bg.max_prefix_slots(opts, NL, cr, per_chunk) if per_chunk else None
+        cap = bg.max_prefix_slots(opts, NL, cr, per_chunk) if opts.temp_dir else None
         if opts.verbose:
             print(
                 f"[engine] two-level k={k} canonical={opts.canonical} "
@@ -478,11 +487,15 @@ class CountEngine:
                 # Rows that pass the cap (a snapshot written under another
                 # rule) become a run, as at a consolidation.
                 rows = records.strip_lanes_to_active(resumed.lanes, k)
-                cp, spill = bg.next_prefix(cap, cp, len(resumed.counts), 0)
+                U = len(resumed.counts)
+                most = None if cap is not None else bg.consolidation_prefix_slots(limit, NL, cp, cr, U, 0, per_chunk)
+                cp, spill = bg.next_prefix(cap, cp, U, 0, most)
                 if spill:
                     self._spill(rows, resumed.counts, stats, metrics)
                 else:
-                    live_bound = len(resumed.counts)
+                    live_bound = U
+                if cap is None:
+                    cr = bg.raw_slots_within(limit, NL, cp, cr, live_bound, per_chunk)
                 prefix_lanes = np.full((NL, cp), 0xFFFFFFFF, np.uint32)
                 prefix_counts = np.zeros(cp, np.uint32)
                 prefix_lanes[:, :live_bound] = rows[:live_bound].T
@@ -490,6 +503,8 @@ class CountEngine:
                 table = t2.table_from_numpy(prefix_lanes, prefix_counts, np.zeros((NL, cr), np.uint32), 0,
                                             resumed.allt, self.device)
             else:
+                if cap is None:
+                    cr = bg.raw_slots_within(limit, NL, cp, cr, 0, per_chunk)
                 table = t2.make_table2(cp, cr, NL, self.device)
 
         def consolidate(final=False):
@@ -499,8 +514,10 @@ class CountEngine:
             # here, not passed in, so the old buffers are freed before the
             # kernel runs.  The all-T side count stays in the table and is
             # written once, at the end.
-            nonlocal table, cp, live_bound
-            new_cp, spill = bg.next_prefix(cap, cp, live_bound, raw_bound)
+            nonlocal table, cp, cr, live_bound
+            most = None if cap is not None else bg.consolidation_prefix_slots(
+                limit, NL, cp, cr, live_bound, raw_bound, per_chunk)
+            new_cp, spill = bg.next_prefix(cap, cp, live_bound, raw_bound, most)
             if spill:
                 self._spill(to_numpy(table.prefix_lanes[:, :live_bound]).T,
                             to_numpy(table.prefix_counts[:live_bound]), stats, metrics)
@@ -513,7 +530,7 @@ class CountEngine:
                 table = t2.grow2(table, new_cp, cr)
                 cp = new_cp
             with metrics.timer("consolidate"):
-                table, live_bound, lost = t2.consolidate3(table)
+                table, live_bound, lost = t2.consolidate3(table, metrics=metrics)
             if lost:
                 raise RuntimeError(
                     f"consolidation truncated {lost} live records: "
@@ -522,6 +539,13 @@ class CountEngine:
             if final:
                 return  # counted by run() as the finalize's
             stats.consolidations += 1
+            if cap is None:
+                raw_slots = bg.raw_slots_within(limit, NL, cp, cr, live_bound, per_chunk)
+                if raw_slots < cr:
+                    if opts.verbose:
+                        print(f"[engine] raw region {cr} -> {raw_slots} slots beside {live_bound} live rows")
+                    table = t2.grow2(table, cp, raw_slots)
+                    cr = raw_slots
             if self._checkpoint_due(stats):
                 self._save_checkpoint(stats, table.prefix_lanes[:, :live_bound],
                                       table.prefix_counts[:live_bound], int(table.allt) & MASK)
@@ -565,7 +589,7 @@ class CountEngine:
                 f"reads/chunk={reads_per_chunk} table_slots={table_slots} "
                 f"device={self.device}"
             )
-        cap = bg.max_table_slots(opts, NL, per_chunk) if per_chunk else None
+        cap = bg.max_table_slots(opts, NL, per_chunk) if opts.temp_dir else None
         with metrics.timer("setup"):
             if resumed is not None:
                 # The snapshot's rows and room for a chunk; where the table

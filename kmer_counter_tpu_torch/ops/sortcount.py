@@ -35,6 +35,12 @@ def _digits(lanes: torch.Tensor) -> list[torch.Tensor]:
     return out
 
 
+def lex_digits(num_lanes: int) -> int:
+    """The int64 digits of ``num_lanes`` lanes: ``lex_argsort``'s stable
+    sort passes."""
+    return -(-num_lanes // 2)
+
+
 def lex_argsort(lanes: torch.Tensor) -> torch.Tensor:
     """Stable permutation sorting ``[NL, N] int32`` lanes ascending as
     unsigned lexicographic keys (the counterpart of

@@ -32,6 +32,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from kmer_counter_tpu_torch.metrics import span
 from kmer_counter_tpu_torch.ops.compact_live import compact_live
 from kmer_counter_tpu_torch.ops.merge_fold_compact import merge_fold_compact
 from kmer_counter_tpu_torch.ops.merge_runs import (
@@ -39,7 +40,7 @@ from kmer_counter_tpu_torch.ops.merge_runs import (
     merge_sorted_runs_fold,
     merge_sorted_runs_fold_bitonic,
 )
-from kmer_counter_tpu_torch.ops.sortcount import lex_argsort, run_heads, run_totals, sort_reduce
+from kmer_counter_tpu_torch.ops.sortcount import lex_argsort, lex_digits, run_heads, run_totals, sort_reduce
 from kmer_counter_tpu_torch.ops.u32 import MASK, SENTINEL, counts_to_host, from_numpy, narrow, to_numpy, widen
 
 
@@ -149,8 +150,20 @@ def _fold_counts_in_place(lanes: torch.Tensor, counts: torch.Tensor) -> torch.Te
     return counts
 
 
+def _raw_sort(sort, table: TwoLevelTable, metrics):
+    """``sort(raw_lanes, raw_off)`` (one of the raw sorts above) inside the
+    ``consolidate.raw_sort`` timer, with the rows it sorts and its stable
+    sort passes (one a two-lane digit) counted; nothing is synchronised."""
+    if metrics is not None:
+        metrics.count("raw_sort_rows", table.raw_off)
+        metrics.count("raw_sort_passes", lex_digits(table.raw_lanes.shape[0]))
+    with span(metrics, "consolidate.raw_sort"):
+        return sort(table.raw_lanes, table.raw_off)
+
+
 def consolidate3(
-    table: TwoLevelTable, *, fold_fused: bool = True, bitonic: bool = True, fused_compact: bool = True
+    table: TwoLevelTable, *, fold_fused: bool = True, bitonic: bool = True, fused_compact: bool = True,
+    metrics=None,
 ) -> tuple[TwoLevelTable, int, int]:
     """Merge the raw region into the prefix.
 
@@ -167,20 +180,24 @@ def consolidate3(
     ascending raw sort, with the fold in the merge kernel (K4) when
     ``fold_fused``, else with multiplicities from the sort, a plain merge
     (K5) and the fold in torch; then K2.  Every variant returns the same.
+
+    ``metrics``: the raw sort, whichever the variant, is timed there
+    (``consolidate.raw_sort``) and counted (``raw_sort_rows``,
+    ``raw_sort_passes``).
     """
     NL, CP = table.prefix_lanes.shape
     a_ops = [*table.prefix_lanes.unbind(0), table.prefix_counts]
     if bitonic and fused_compact:
-        s_desc, ones = _sort_raw_desc(table.raw_lanes, table.raw_off)
+        s_desc, ones = _raw_sort(_sort_raw_desc, table, metrics)
         out, live_count = merge_fold_compact(a_ops, [*s_desc.unbind(0), ones], NL, out_rows=CP)
         del s_desc, ones
     else:
         if bitonic:
-            s_desc, ones = _sort_raw_desc(table.raw_lanes, table.raw_off)
+            s_desc, ones = _raw_sort(_sort_raw_desc, table, metrics)
             merged = merge_sorted_runs_fold_bitonic(a_ops, [*s_desc.unbind(0), ones], NL)
             del s_desc, ones
         else:
-            s, counts = (_sort_raw_ones if fold_fused else _sort_raw)(table.raw_lanes, table.raw_off)
+            s, counts = _raw_sort(_sort_raw_ones if fold_fused else _sort_raw, table, metrics)
             merge = merge_sorted_runs_fold if fold_fused else merge_sorted_runs
             merged = merge(a_ops, [*s.unbind(0), counts], NL)
             del s, counts
@@ -203,21 +220,28 @@ def consolidate3(
 
 def grow2(table: TwoLevelTable, prefix_slots: int, raw_slots: int) -> TwoLevelTable:
     """Copy into larger buffers; new prefix slots get the sentinel key
-    and count 0, so the prefix stays ascending.  A raw region that keeps
-    its size is shared with ``table``, not copied."""
+    and count 0, so the prefix stays ascending.  A prefix that keeps its
+    size, and a raw region that keeps its size, are shared with ``table``,
+    not copied.  The prefix never shrinks; the raw region may, to no fewer
+    slots than it has in use (the prefix then takes the memory it gave
+    up)."""
     NL, CP = table.prefix_lanes.shape
     CR = table.raw_lanes.shape[1]
-    if prefix_slots < CP or raw_slots < CR:
-        raise ValueError("grow2() cannot shrink the table")
+    if prefix_slots < CP or raw_slots < table.raw_off:
+        raise ValueError("grow2() cannot shrink the prefix, or the raw region below its rows in use")
     device = table.prefix_lanes.device
-    prefix_lanes = torch.full((NL, prefix_slots), SENTINEL, dtype=torch.int32, device=device)
-    prefix_lanes[:, :CP] = table.prefix_lanes
-    prefix_counts = torch.zeros(prefix_slots, dtype=torch.int32, device=device)
-    prefix_counts[:CP] = table.prefix_counts
+    prefix_lanes, prefix_counts = table.prefix_lanes, table.prefix_counts
+    if prefix_slots > CP:
+        prefix_lanes = torch.full((NL, prefix_slots), SENTINEL, dtype=torch.int32, device=device)
+        prefix_lanes[:, :CP] = table.prefix_lanes
+        prefix_counts = torch.zeros(prefix_slots, dtype=torch.int32, device=device)
+        prefix_counts[:CP] = table.prefix_counts
     raw_lanes = table.raw_lanes
-    if raw_slots > CR:
+    if raw_slots != CR:
+        # a grown region keeps every row, a shrunk one the rows in use
+        keep = CR if raw_slots > CR else table.raw_off
         raw_lanes = torch.zeros((NL, raw_slots), dtype=torch.int32, device=device)
-        raw_lanes[:, :CR] = table.raw_lanes
+        raw_lanes[:, :keep] = table.raw_lanes[:, :keep]
     return TwoLevelTable(prefix_lanes, prefix_counts, raw_lanes, table.raw_off, table.allt)
 
 
@@ -250,7 +274,7 @@ def finalize_host(table: TwoLevelTable, k: int, live: int | None = None,
     table's last (T^k packs to all-ones in every active lane: the maximum
     key)."""
     if table.raw_off > 0:
-        table, live, lost = consolidate3(table)
+        table, live, lost = consolidate3(table, metrics=metrics)
         if lost:
             raise RuntimeError(
                 f"two-level consolidation truncated {lost} live records: "

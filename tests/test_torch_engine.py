@@ -165,3 +165,96 @@ def test_cli_with_each_split_consolidation_matches_golden(tmp_path, rng, monkeyp
     assert out.read_bytes() == golden_bytes(tmp_path, k, canonical)
     assert calls["merge"] >= 2 and calls["compact_live"] == calls["merge"]
     assert calls["merge_fold_compact"] == 0
+
+
+def _genome_reads(rng, genome_length, n, L):
+    """``n`` reads of ``L`` bases sampled from a random genome, so that
+    their windows repeat."""
+    genome = "".join(rng.choice(list("ACGT"), size=genome_length))
+    return [genome[s : s + L] for s in rng.integers(0, genome_length - L + 1, size=n)]
+
+
+def _reckoned_tables(monkeypatch, opts, line_length):
+    """Spies on the two-level table's allocation, growth, consolidation and
+    finalize: each call's tables as (step, prefix slots, raw slots), and
+    the largest peak the budget model reckons for the steps at those
+    sizes."""
+    from kmer_counter_tpu_torch import budget as bg
+    from kmer_counter_tpu_torch import records
+    from kmer_counter_tpu_torch.ops import table2 as t2
+    from kmer_counter_tpu_torch.ops.pipeline import chunk_slots
+
+    NL, limit = records.active_lanes(opts.kmer_length), opts.memory_limit_bytes
+    reads_per_chunk, _ = plan_chunks(opts, line_length)
+    chunk = bg.Chunk(reads_per_chunk * line_length, chunk_slots(reads_per_chunk, line_length, opts.kmer_length))
+    seen = {"tables": [], "reckoned": 0}
+
+    def spy(name, real, sizes, peaks):
+        def call(*args, **kw):
+            seen["tables"].append((name, *sizes(*args)))
+            if peaks is not None:
+                seen["reckoned"] = max(seen["reckoned"], *peaks(*args).values())
+            return real(*args, **kw)
+
+        return call
+
+    def shape(t, *_):
+        return t.prefix_lanes.shape[1], t.raw_lanes.shape[1]
+
+    monkeypatch.setattr(t2, "make_table2", spy("make", t2.make_table2, lambda cp, cr, *a: (cp, cr), None))
+    monkeypatch.setattr(t2, "grow2", spy("grow2", t2.grow2, lambda t, cp, cr: (cp, cr), lambda t, cp, cr: (
+        bg.two_level_peaks(NL, cp, cr, 0, chunk, grow_from=t.prefix_lanes.shape[1], limit=limit))))
+    monkeypatch.setattr(t2, "consolidate3", spy("consolidate3", t2.consolidate3, shape, lambda t, **kw: (
+        bg.two_level_peaks(NL, *shape(t), t.raw_off, chunk, limit=limit))))
+    monkeypatch.setattr(t2, "finalize2", spy("finalize2", t2.finalize2, shape, lambda t, live=None: (
+        bg.two_level_peaks(NL, t.prefix_lanes.shape[1], 0, 0, chunk, finalize_rows=live, limit=limit))))
+    return seen
+
+
+def test_a_prefix_past_the_limit_takes_raw_slots_and_counts_exactly(tmp_path, rng, monkeypatch):
+    """Without a tempFileLocation the plan alone keeps gpuMemoryLimit: k=55
+    forward (four key lanes) on reads whose distinct windows outgrow what
+    a geometric prefix may take beside the planned raw region.  The prefix
+    grows only as far as the model allows, the raw region gives up slots
+    (at the start and between consolidations), every step the model
+    reckons at the sizes the engine chose stays within the limit, and the
+    dump is the reference's."""
+    (tmp_path / "in").mkdir()
+    write_fastq(tmp_path / "in" / "a.fastq", _genome_reads(rng, 12_000, 600, 100))
+    limit = 1_200_000
+    opts = Options(kmer_length=55, canonical=False, input_dir=str(tmp_path / "in"),
+                   output_file=str(tmp_path / "o.bin"), memory_limit_bytes=limit, reads_per_chunk=20,
+                   table_impl="two", verbose=0)
+    seen = _reckoned_tables(monkeypatch, opts, 100)
+    stats = CountEngine(opts, device=CPU).run()
+    assert (tmp_path / "o.bin").read_bytes() == golden_bytes(tmp_path, 55, False)
+    assert 0 < seen["reckoned"] <= limit
+    (_, cp0, cr0), *rest = seen["tables"]
+    _, planned = plan_chunks(opts, 100)
+    assert seen["tables"][0][0] == "make" and cp0 + cr0 < planned  # the raw region shrank before the start
+    raw_sizes = [cr for step, _, cr in rest]
+    assert any(b < a for a, b in zip([cr0, *raw_sizes], raw_sizes))  # and again between consolidations
+    assert stats.consolidations > 600 * 46 // cr0
+
+
+@pytest.mark.parametrize("limit,genome", [(100_000, 12_000), (600_000, 12_000)], ids=["at_the_start", "mid_run"])
+def test_a_limit_no_plan_keeps_stops_before_it_allocates(tmp_path, rng, monkeypatch, limit, genome):
+    """Where the live rows (none, at the start) leave no room for a raw
+    region of one chunk, the count stops with an error that names both
+    ways out, before it allocates the table (at the start) or its next raw
+    region (mid-run)."""
+    (tmp_path / "in").mkdir()
+    write_fastq(tmp_path / "in" / "a.fastq", _genome_reads(rng, genome, 600, 100))
+    opts = Options(kmer_length=55, canonical=False, input_dir=str(tmp_path / "in"),
+                   output_file=str(tmp_path / "o.bin"), memory_limit_bytes=limit, reads_per_chunk=20,
+                   table_impl="two", verbose=0)
+    seen = _reckoned_tables(monkeypatch, opts, 100)
+    with pytest.raises(RuntimeError, match=r"gpuMemoryLimit=\d+ .* tempFileLocation"):
+        CountEngine(opts, device=CPU).run()
+    steps = [step for step, *_ in seen["tables"]]
+    if limit == 100_000:
+        assert steps == []
+    else:  # the last step before the error is a consolidation, not a new raw region
+        assert steps[-1] == "consolidate3" and "finalize2" not in steps
+    assert seen["reckoned"] <= limit
+    assert not (tmp_path / "o.bin").exists()

@@ -260,7 +260,8 @@ def test_spans_nest_inside_the_run_in_a_profiled_count(tmp_path, rng):
     (run,) = [s for s in spans if s[0] == "kmer.run"]
     main_tid = run[3]
     on_main = [s for s in spans if s[3] == main_tid and s[0] != "kmer.run"]
-    assert {s[0] for s in on_main} == {"kmer." + name for name in MAIN_SPANS if name != "run"}
+    two_level = MAIN_SPANS + ("consolidate.raw_sort",)
+    assert {s[0] for s in on_main} == {"kmer." + name for name in two_level if name != "run"}
     assert all(run[1] <= s[1] <= s[2] <= run[2] for s in on_main)
     # The phases directly inside the run lie side by side, and each phase
     # opens at one depth only.
@@ -269,6 +270,27 @@ def test_spans_nest_inside_the_run_in_a_profiled_count(tmp_path, rng):
     starts = sorted(s[1:3] for s in phases)
     assert all(a[1] <= b[0] for a, b in zip(starts, starts[1:]))
     assert not {s[0] for s in phases} & {s[0] for s in on_main if s not in phases}
+
+
+@pytest.mark.parametrize("k,canonical,passes", [(31, True, 1), (55, False, 2)])
+def test_the_raw_sort_opens_once_a_consolidation(tmp_path, rng, k, canonical, passes):
+    """The two-level raw sort's timer, ``consolidate.raw_sort``, opens once
+    inside each consolidation's span, with its rows (every raw row: each
+    window of the reads) and its stable sort passes (one a two-lane digit:
+    1 at k=31, 2 at k=55) counted."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        stats = _count(tmp_path, rng, "two", k=k, canonical=canonical)
+    prof.export_chrome_trace(str(tmp_path / "t.json"))
+    calls, counters = stats.metrics["timer_calls"], stats.metrics["counters"]
+    consolidations = calls["consolidate"]
+    assert consolidations >= 2 and calls["consolidate.raw_sort"] == consolidations
+    assert counters["raw_sort_passes"] == passes * consolidations
+    assert counters["raw_sort_rows"] == 40 * (60 - k + 1)
+    spans = _kmer_spans(tmp_path / "t.json")
+    outer = [s for s in spans if s[0] == "kmer.consolidate"]
+    inner = [s for s in spans if s[0] == "kmer.consolidate.raw_sort"]
+    assert len(outer) == len(inner) == consolidations
+    assert all(sum(o[3] == i[3] and o[1] <= i[1] <= i[2] <= o[2] for i in inner) == 1 for o in outer)
 
 
 @pytest.mark.parametrize("table_impl", ["two", "one"])

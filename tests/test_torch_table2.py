@@ -168,6 +168,24 @@ def test_grow2_pads_with_sentinel_and_keeps_state():
         t2.grow2(grown, 5, 8)
 
 
+def test_grow2_shrinks_the_raw_region_to_its_rows_in_use():
+    """An unchanged prefix is shared; a shrunk raw region keeps its rows in
+    use and is zero past them; no region shrinks below those rows."""
+    table = t2.make_table2(4, 8, 2, CPU)
+    table.raw_lanes[:, :3] = 9
+    table.raw_lanes[:, 3:] = 7  # stale rows past raw_off
+    table.raw_off = 3
+    shrunk = t2.grow2(table, 4, 5)
+    assert shrunk.prefix_lanes is table.prefix_lanes and shrunk.prefix_counts is table.prefix_counts
+    _, _, rl, off, _ = t2.table_to_numpy(shrunk)
+    assert rl.shape == (2, 5) and off == 3
+    np.testing.assert_array_equal(rl[:, :3], 9)
+    assert (rl[:, 3:] == 0).all()
+    assert t2.grow2(table, 4, 3).raw_lanes.shape == (2, 3)
+    with pytest.raises(ValueError):
+        t2.grow2(table, 4, 2)
+
+
 def test_consolidate3_reports_lost_and_finalize_raises(rng):
     k = 15
     reads = random_reads(rng, 8, 40)
