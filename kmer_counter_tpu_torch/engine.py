@@ -41,7 +41,10 @@ transposes them on the host (``.transpose``) instead of the dump; the
 they crossed from a card);
 in the prefetch thread ``ingest``, ``feed.acquire`` (waiting for a free
 slot of the ring) and ``stage``.  The counter ``unspanned_us`` is the part
-of ``run`` that no timer opened directly inside it covered.
+of ``run`` that no timer opened directly inside it covered; with
+``ingestThreads`` > 1 the source's ``ingest_blocks_ready``,
+``ingest_blocks_waited`` and ``ingest_units`` (io.fastq.ParallelIngest)
+are counters too.
 
 ``MeshCountEngine`` runs the same loop over the positions of a mesh
 (parallel): each counts its rows of every chunk into a table of its own,
@@ -266,6 +269,8 @@ class CountEngine:
                 feed.close()
                 ingest.join()
                 source.close()
+            for name, value in getattr(source, "counters", {}).items():
+                metrics.count(name, value)
 
     def _feed(self, devices, rows_per_position, line_length):
         """The run's feed (feed.py), its ring allocated here, on the main
@@ -307,6 +312,7 @@ class CountEngine:
             source = _make_source(opts)
             usable = [L for L in source.probe_line_lengths() if L >= k]
         if not usable:
+            source.close()
             dump_table(opts.output_file, np.zeros((0, records.active_lanes(k)), np.uint32), np.zeros(0, np.uint32),
                        metrics=metrics)
             return
@@ -810,6 +816,7 @@ class MeshCountEngine(CountEngine):
                 longest = global_max_int(mesh, max(usable, default=0))
                 usable = [longest] if longest >= k else []
         if not usable:
+            source.close()
             dump_table(opts.output_file, np.zeros((0, records.active_lanes(k)), np.uint32), np.zeros(0, np.uint32),
                        metrics=metrics)
             return None
